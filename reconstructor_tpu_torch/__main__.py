@@ -1,0 +1,3 @@
+from reconstructor_tpu_torch.cli import main
+
+raise SystemExit(main())

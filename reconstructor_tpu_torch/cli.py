@@ -1,0 +1,70 @@
+"""Command-line entry point — the reference's ``reconstruct`` executable.
+
+    python -m reconstructor_tpu_torch IMG_FOLDER OUT_FOLDER \
+        --max-keypoints 4096 [--device cuda]
+
+Runs the default path (SIFT, kNN + fundamental gate, PnP, dense-Schur
+BA) and writes ``clouds/cloud_final.ply`` and ``report.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="reconstructor_tpu_torch",
+        description="incremental structure-from-motion on PyTorch/CUDA")
+    p.add_argument("img_folder", help="folder of input images")
+    p.add_argument("out_folder", help="output folder (clouds/ written here)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: cuda)")
+    p.add_argument("--max-keypoints", type=int, default=2048)
+    p.add_argument("--img-max-size", type=int, default=512)
+    p.add_argument("--focal-px", type=float, default=None,
+                   help="known focal length in pixels (else colmap-style prior)")
+    p.add_argument("--focal-factor", type=float, default=1.2)
+    p.add_argument("--save-intermediate", action="store_true",
+                   help="dump cloud_before_i/cloud_after_i each iteration")
+    p.add_argument("--pair-selection", choices=["exhaustive", "retrieval"],
+                   default="exhaustive")
+    p.add_argument("--retrieval-top-k", type=int, default=10)
+    p.add_argument("--local-ba-window", type=int, default=None,
+                   help="windowed local BA size; 0 = global BA every view")
+    p.add_argument("--global-ba-every", type=int, default=None,
+                   help="full global BA every N registrations (with local BA)")
+    p.add_argument("--final-refinement", type=int, default=None,
+                   help="extra global BA rounds after the last view")
+    p.add_argument("--quiet", action="store_true")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    from reconstructor_tpu_torch.config import ReconstructorConfig
+    from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
+
+    cfg = ReconstructorConfig(
+        max_keypoints=args.max_keypoints, img_max_size=args.img_max_size,
+        focal_px=args.focal_px, focal_length_factor=args.focal_factor,
+        pair_selection=args.pair_selection, retrieval_top_k=args.retrieval_top_k)
+    overrides = {k: v for k, v in
+                 (("ba_local_window", args.local_ba_window),
+                  ("ba_global_every", args.global_ba_every),
+                  ("final_refinement_rounds", args.final_refinement))
+                 if v is not None}
+    if overrides:
+        cfg = cfg.with_(**overrides)
+    rec = IncrementalReconstructor(cfg, verbose=not args.quiet, device=args.device)
+    state = rec.reconstruct(args.img_folder, args.out_folder,
+                            save_intermediate=args.save_intermediate)
+    print(f"registered {len(state.registered)}/{state.num_images} views, "
+          f"{state.num_landmarks} landmarks")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

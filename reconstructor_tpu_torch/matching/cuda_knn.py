@@ -1,0 +1,164 @@
+"""Fused exact top-2 kNN matching: a hand-written CUDA kernel for Hopper.
+
+Counterpart of ``reconstructor_tpu/matching/pallas_knn.py``: the TPU
+package's Pallas ``_knn_kernel`` becomes ``csrc/knn_top2.cu`` (whose
+header says what bounds it on an H100 and how its design answers that),
+built with ``nvcc`` for ``sm_90a`` at first use and called through
+``ctypes``. Per pair (i, j) of a pair table it returns the row best,
+second best and argmin of the masked squared-distance matrix and the
+column argmin over image i for the mutual check; the (K, K) distance
+matrix never reaches device memory. ``match_all_pairs_fused`` applies
+the Lowe ratio and mutual test on those outputs, with the contract of the
+TPU package's function of the same name.
+
+``knn_topk2`` is the wrapper: on a CUDA tensor it launches the kernel or
+raises; on a CPU tensor it runs ``knn_topk2_plain``, the same function in
+plain PyTorch, which is also what the kernel is held against on the card.
+``LAUNCHES`` counts kernel launches (plain-version calls do not count).
+
+Masked slots ride a large-finite bias (1e30) instead of inf so no
+inf - inf NaNs can appear in the reductions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from reconstructor_tpu_torch.utils import cuda_build
+
+SOURCE = "matching/csrc/knn_top2.cu"
+REPLACES = "reconstructor_tpu/matching/pallas_knn.py:100"   # _knn_kernel
+_BIG = 1e30
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES = 0
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load(SOURCE)
+    if not getattr(lib, "_knn_bound", False):
+        vp = ctypes.c_void_p
+        lib.knn_top2_launch.argtypes = [vp, ctypes.c_int, vp, vp, ctypes.c_int,
+                                        ctypes.c_int, vp, vp, vp, vp, vp, vp]
+        lib.knn_top2_launch.restype = ctypes.c_int
+        lib.knn_top2_error_string.argtypes = [ctypes.c_int]
+        lib.knn_top2_error_string.restype = ctypes.c_char_p
+        lib._knn_bound = True
+    return lib
+
+
+def supported(K: int, D: int) -> bool:
+    """Whether the kernel handles this descriptor layout."""
+    return K % 128 == 0 and D == 128
+
+
+def knn_topk2_plain(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor,
+                    pairs_per_batch: int = 16):
+    """The kernel's function in plain PyTorch (float32 accumulation).
+
+    desc: (N, K, D) float32 or bfloat16; bias: (N, K) float32 (0 valid /
+    1e30 masked); pair_idx: (B, 2) int. Returns (best (B,K), second (B,K),
+    arg (B,K) int32, colarg (B,K) int32).
+    """
+    K = desc.shape[1]
+    outs = []
+    cols = torch.arange(K, device=desc.device)
+    for s in range(0, pair_idx.shape[0], pairs_per_batch):
+        pc = pair_idx[s:s + pairs_per_batch].long()
+        i, j = pc[:, 0], pc[:, 1]
+        sim = torch.matmul(desc[i].float(), desc[j].float().transpose(1, 2))
+        dist = torch.clamp(2.0 - 2.0 * sim, min=0.0) + bias[j][:, None, :]
+        best, arg = torch.min(dist, dim=2)
+        second = torch.amin(torch.where(cols == arg[:, :, None], _BIG, dist), dim=2)
+        dist_c = dist + bias[i][:, :, None]
+        colmin, colarg = torch.min(dist_c, dim=1)
+        # the TPU kernel's running accumulator starts at 1e30 and only
+        # takes strictly smaller minima: a column with none keeps row 0
+        colarg = torch.where(colmin < _BIG, colarg, 0)
+        outs.append((best, second, arg.to(torch.int32), colarg.to(torch.int32)))
+    return tuple(torch.cat(t) for t in zip(*outs))
+
+
+def knn_topk2(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor):
+    """Top-2 kNN outputs for every pair; see ``knn_topk2_plain``.
+
+    On a CUDA tensor this launches ``csrc/knn_top2.cu`` (or raises); the
+    plain version runs only for tensors on the CPU.
+    """
+    if desc.device.type == "cpu":
+        return knn_topk2_plain(desc, bias, pair_idx)
+    if desc.device.type != "cuda":
+        raise ValueError(f"knn_topk2: unsupported device {desc.device}")
+    N, K, D = desc.shape
+    B = pair_idx.shape[0]
+    if desc.dtype not in _DTYPE_CODE:
+        raise TypeError(f"knn_topk2: descriptors must be float32 or bfloat16, got {desc.dtype}")
+    if not supported(K, D):
+        raise ValueError(f"knn_topk2: need K % 128 == 0 and D == 128, got K={K} D={D}")
+    if bias.dtype != torch.float32 or tuple(bias.shape) != (N, K):
+        raise ValueError(f"knn_topk2: bias must be float32 (N, K), got {bias.dtype} {tuple(bias.shape)}")
+    if pair_idx.dtype != torch.int32 or pair_idx.dim() != 2 or pair_idx.shape[1] != 2:
+        raise ValueError("knn_topk2: pair_idx must be int32 (B, 2)")
+    if not 0 < B <= 65535:
+        raise ValueError(f"knn_topk2: 0 < B <= 65535 pairs per launch, got {B}")
+    for name, t in (("desc", desc), ("bias", bias), ("pair_idx", pair_idx)):
+        if t.device != desc.device:
+            raise ValueError(f"knn_topk2: {name} on {t.device}, descriptors on {desc.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"knn_topk2: {name} must be contiguous")
+    lib = _lib()
+    dev = desc.device
+    best = torch.empty((B, K), dtype=torch.float32, device=dev)
+    second = torch.empty((B, K), dtype=torch.float32, device=dev)
+    arg = torch.empty((B, K), dtype=torch.int32, device=dev)
+    colarg = torch.empty((B, K), dtype=torch.int32, device=dev)
+    colbest = torch.empty((B, K), dtype=torch.int64, device=dev)   # 64-bit keys
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.knn_top2_launch(
+            desc.data_ptr(), _DTYPE_CODE[desc.dtype], bias.data_ptr(),
+            pair_idx.data_ptr(), B, K, best.data_ptr(), second.data_ptr(),
+            arg.data_ptr(), colarg.data_ptr(), colbest.data_ptr(), stream)
+    if status != 0:
+        raise RuntimeError("knn_top2 launch failed: "
+                           + lib.knn_top2_error_string(status).decode())
+    global LAUNCHES
+    LAUNCHES += 1
+    return best, second, arg, colarg
+
+
+def match_all_pairs_fused(desc: torch.Tensor, mask: torch.Tensor,
+                          pair_idx: torch.Tensor,
+                          ratio_thresh: float = 0.7,
+                          cross_check: bool = True,
+                          compute_dtype: str = "float32"):
+    """Fused equivalent of ``matching.knn.match_all_pairs``.
+
+    desc: (N, K, D); mask: (N, K); pair_idx: (P, 2) int32.
+    Returns (match_idx (P, K) int32 into image j or -1, match_mask (P, K)).
+
+    compute_dtype="bfloat16" streams descriptors as bf16 with float32
+    accumulation: the rounding perturbs distances by ~2^-9 relative, which
+    the ratio test and the epipolar gate absorb.
+    """
+    if compute_dtype == "bfloat16":
+        desc = desc.to(torch.bfloat16)
+    desc = desc.contiguous()
+    pair_idx = pair_idx.to(device=desc.device, dtype=torch.int32).contiguous()
+    bias = torch.where(mask, 0.0, _BIG).to(torch.float32).contiguous()
+    best, second, arg, colarg = knn_topk2(desc, bias, pair_idx)
+
+    i = pair_idx[:, 0].long()
+    ratio_ok = best < (ratio_thresh * ratio_thresh) * second
+    ok = ratio_ok & mask[i] & (best < _BIG * 0.5)
+    if cross_check:
+        rows = torch.arange(arg.shape[1], dtype=torch.int32, device=arg.device)
+        ok = ok & (torch.gather(colarg, 1, arg.long()) == rows)
+    return torch.where(ok, arg, -1).to(torch.int32), ok

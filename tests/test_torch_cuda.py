@@ -1,0 +1,39 @@
+"""The CUDA kernels of reconstructor_tpu_torch on the card.
+
+Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip on a
+machine without an NVIDIA GPU. On one, run
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+This file imports no JAX (the GPU machine has none; ``--noconftest``
+skips ``tests/conftest.py``, which configures JAX): it drives the same
+checks as ``chip_smoke.py``'s kernel phase — the top-2 kNN kernel against
+its plain PyTorch version on the TPU package's kernel-test cases and at
+the fountain dataset's shape.
+"""
+
+import os
+import sys
+
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_edge_cases(card):
+    chip_smoke.edge_cases(card)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_at_fountain_shape(card):
+    chip_smoke.phase_kernels(card)

@@ -1,0 +1,44 @@
+"""Helpers shared by the port's parity tests (``test_torch_*.py``): numpy
+inputs to both packages, and the raw RANSAC draws the JAX samplers make."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import torch
+
+from reconstructor_tpu.geometry import se3 as jse3
+
+# The tier-1 run puts six pytest workers on the machine's cores, each
+# also running XLA's own thread pool: two torch threads per worker keep
+# the CPU from being oversubscribed several times over.
+torch.set_num_threads(2)
+
+I32MAX = jnp.iinfo(jnp.int32).max
+
+
+def t(a):
+    """A CPU tensor holding a copy of ``a``."""
+    return torch.from_numpy(np.array(a))
+
+
+def draws(key, shape):
+    """The raw draws ``ransac.sample_minimal_sets`` makes from ``key``."""
+    return np.asarray(jax.random.randint(key, shape, 0, I32MAX, dtype=jnp.int32))
+
+
+INTR = np.array([400.0, 400.0, 160.0, 120.0, 0.0, 0.0], np.float32)
+
+
+def two_view(rng, n=200, outliers=0.3, noise=0.4):
+    """Correspondences of one scene in two cameras, with outliers."""
+    pts = rng.uniform([-2, -1.5, 5], [2, 1.5, 9], (n, 3)).astype(np.float32)
+    R = np.asarray(jse3.angle_axis_to_rotation(jnp.asarray([0.02, -0.08, 0.01], jnp.float32)))
+    tr = np.array([0.6, 0.05, 0.02], np.float32)
+
+    def proj(P):
+        return P[:, :2] / P[:, 2:] * INTR[:2] + INTR[2:4]
+    uv1 = proj(pts) + rng.normal(0, noise, (n, 2))
+    uv2 = proj(pts @ R.T + tr) + rng.normal(0, noise, (n, 2))
+    bad = rng.uniform(size=n) < outliers
+    uv2[bad] = rng.uniform([0, 0], [320, 240], (int(bad.sum()), 2))
+    return uv1.astype(np.float32), uv2.astype(np.float32), pts, R, tr
