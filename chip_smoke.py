@@ -2,32 +2,53 @@
 """Smoke test of reconstructor_tpu_torch on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py                 # every phase, as a check runs it
-    python3 chip_smoke.py --rng-seed 1    # another RANSAC seed in the e2e phase
+    python3 chip_smoke.py --rng-seed 1    # another RANSAC seed in the e2e phases
 
 Phases, each printing one or more lines with its elapsed seconds:
 
-1. device  — the card's name and power limit (nvidia-smi).
-2. build   — nvcc builds the CUDA kernel of the main path from the
-             source in this checkout.
-3. knn     — the top-2 kNN kernel against its plain PyTorch version at
-             the fountain dataset's shape (25 images x 4096 keypoints x
-             128, all 300 pairs in one launch, as the path's chunk of up
-             to 512 pairs takes them): float32 on exactly representable descriptors
-             (every output equal), float32 and bfloat16 on random unit
-             descriptors (distances within tolerance, final matches
-             agreeing at a stated rate), and the edge cases of the TPU
-             package's kernel tests (fully masked image, K = 384, a lone
-             valid column, exact ties).
-4. timing  — kernel, plain version and a torch.matmul + topk yardstick
-             at the fountain shape, beside the card's compute bound.
-5. e2e     — a 25-view 384x512 scene rendered from a seed goes through
-             ``detect_features_from_images`` and ``reconstruct_from_state``
-             at the default configuration on the card, with the kernel's
-             launch counter set to 0 just before and read just after. It
-             must register >= 23 of 25 views with a normalised ATE under
-             10% against the rendered poses, and launch the kernel. The
-             kernel is then held against its plain version on the very
-             inputs the path gave it, and timed there.
+1. device   — the card's name and power limit (nvidia-smi).
+2. build    — nvcc builds both CUDA kernels from the sources in this
+              checkout, side by side (one nvcc process per source).
+3. knn      — the top-2 kNN kernel against its plain PyTorch version at
+              the fountain dataset's shape (25 images x 4096 keypoints x
+              128, all 300 pairs in one launch, as the path's chunk of up
+              to 512 pairs takes them): float32 on exactly representable descriptors
+              (every output equal), float32 and bfloat16 on random unit
+              descriptors (distances within tolerance, final matches
+              agreeing at a stated rate), the edge cases of the TPU
+              package's kernel tests (fully masked image, K = 384, a lone
+              valid column, exact ties), and SuperPoint's 256-wide
+              descriptors (25 x 1024 x 256, exactly representable, every
+              output equal in float32 and bfloat16; then timed in bf16).
+4. timing   — kNN kernel, plain version and a torch.matmul + topk
+              yardstick at the fountain shape, beside the card's bound.
+5. sinkhorn — the Sinkhorn kernel against its plain PyTorch version on
+              seeded random scores with ragged masks (one image fully
+              masked, one with a single valid slot), at K = 1024, 8 pairs,
+              100 iterations and K = 256, 8 pairs, 50 iterations: max error
+              over valid entries and bins, masked entries, marginals,
+              decoded matches; then kernel and plain times and the bound.
+6. render   — the 25-view 384x512 scene, rendered once from a seed for
+              both end-to-end phases.
+7. e2e      — the default path (SIFT, kNN + F-gate, PnP, BA) through
+              ``detect_features_from_images`` and ``reconstruct_from_state``
+              on the card, with every kernel's launch counter set to 0 just
+              before and read just after. It must register >= 23 of 25
+              views with a normalised ATE under 10% against the rendered
+              poses, and launch the kNN kernel. The kernel is then held
+              against its plain version on the very inputs the path gave
+              it, and timed there.
+8. learned  — the learned path (SuperPoint from
+              ``tests/data/superpoint_synth.npz``, the structured 18-layer
+              256-wide SuperGlue at 1024 keypoints, 100 Sinkhorn
+              iterations, F-gate, PnP, BA) through the same entry points,
+              with the same limits, and it must launch the Sinkhorn
+              kernel. The kernel is then held against its plain version on
+              the scores of the run's first chunk of pairs, and timed there.
+              Last, the trained 4-layer GNN of
+              ``tests/data/superglue_fountain.npz`` scores that chunk on
+              the card and on the CPU, which must agree (the structured
+              GNN's output does not depend on its attention layers).
 
 The last two lines of standard output are a JSON object describing each
 kernel and a JSON object ``{"ok": true, "device": {...}}``. Any failure
@@ -44,11 +65,13 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 T0 = time.perf_counter()
 BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 F32_PEAK = 67e12        # H100 SXM float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+SFU_EXP_PER_CLOCK_PER_SM = 16   # H100 special-function units: exponentials
 
 
 def log(phase: str, msg: str) -> None:
@@ -60,9 +83,9 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
@@ -306,8 +329,22 @@ def phase_kernels(dev, N: int = 25, K: int = 4096, D: int = 128):
                f"(bound: >= 0.97; the TPU package's record is 99.1% inlier agreement)")
     check(agree >= 0.97, f"bf16 and f32 matches agree on only {agree:.4f}")
     edge_cases(dev)
+    knn_superpoint_width(dev)
     cuda_knn.reset_launches()
     return desc, mask, chunk
+
+
+def knn_superpoint_width(dev, N: int = 25, K: int = 1024, D: int = 256):
+    """SuperPoint's 256-wide descriptors (the learned detector with the kNN
+    matcher): exactly representable values, so every output of the kernel
+    equals the plain version's, in float32 and in bfloat16."""
+    import torch
+    chunk = all_pairs(N, dev)
+    desc, mask = knn_inputs(N, K, D, seed=3, quantized=True, dev=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        compare_knn(desc.to(dt), mask, chunk, exact=True, tol=0.0, min_match_agree=1.0,
+                    label=f"SuperPoint width N={N} K={K} D={D} {dt}, exactly representable")
+    return time_knn(desc.to(torch.bfloat16), mask, chunk, "SuperPoint width")
 
 
 def phase_timing(desc, mask, chunk):
@@ -316,51 +353,206 @@ def phase_timing(desc, mask, chunk):
         time_knn(desc.to(dt), mask, chunk, "fountain shape")
 
 
-def phase_e2e(dev, tmp: str, n_views: int = 25, h: int = 384, w: int = 512,
-              tex_size: int = 1024, n_blobs: int = 1200, cfg=None, min_registered: int = 23):
+# ----------------------------------------------------------------------
+# Sinkhorn inputs and comparisons
+# ----------------------------------------------------------------------
+
+def sinkhorn_inputs(B: int, K: int, seed: int, plant: float, dev):
+    """Seeded (B, K, K) scores: unit normal noise plus ``plant`` on a random
+    permutation for half the rows (so the decode finds matches), ragged
+    valid prefixes, pair 1's image 0 fully masked and pair 2's image 1
+    with a single valid slot. At these scales the plain loop's marginals
+    converge to ~1e-6 in the stated iterations."""
     import numpy as np
     import torch
-    from reconstructor_tpu_torch.config import ReconstructorConfig
-    from reconstructor_tpu_torch.eval import render, synth
-    from reconstructor_tpu_torch.io import images as io_images
-    from reconstructor_tpu_torch.matching import cuda_knn
-    from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
+    rng = np.random.default_rng(seed)
+    scores = rng.standard_normal((B, K, K)).astype(np.float32)
+    m0 = np.zeros((B, K), bool)
+    m1 = np.zeros((B, K), bool)
+    for b in range(B):
+        c0, c1 = rng.integers(K // 3, K + 1, 2)
+        m0[b, :c0] = True
+        m1[b, :c1] = True
+        perm = rng.permutation(K)
+        rows = rng.choice(K, K // 2, replace=False)
+        scores[b, rows, perm[rows]] += plant
+    m0[1] = False
+    m1[2] = False
+    m1[2, 0] = True
+    return (torch.from_numpy(scores).to(dev), torch.from_numpy(m0).to(dev),
+            torch.from_numpy(m1).to(dev))
 
+
+def compare_sinkhorn(scores, alpha, m0, m1, iters: int, label: str,
+                     marginal_tol=1e-3):
+    """Kernel vs plain version on identical inputs: max error over the
+    valid entries and the bins (<= 1e-4), masked entries (<= -1e8 in
+    both), the row and column marginals of exp(Z) against log_mu / log_nu
+    (to ``marginal_tol`` in log space; ``None``: as close as the plain
+    version's own, within 1e-4), and the decoded matches (mutual argmax,
+    score > 0.5) on >= 99.9% of valid rows. Returns a dict."""
+    import torch
+    from reconstructor_tpu_torch.matching import cuda_sinkhorn, superglue
+    C, mu, nu, norm = cuda_sinkhorn.augment(scores, alpha, m0, m1)
+    zk = cuda_sinkhorn.sinkhorn_kernel(C, mu, nu, iters)
+    torch.cuda.synchronize()
+    zp = cuda_sinkhorn.sinkhorn_plain(C, mu, nu, iters)
+    ones = torch.ones_like(m0[:, :1])
+    valid = (torch.cat([m0, ones], 1)[:, :, None] & torch.cat([m1, ones], 1)[:, None, :])
+    err = (zk - zp).abs()[valid].max().item()
+    masked = max(zk[~valid].max().item(), zp[~valid].max().item()) if (~valid).any() else -1e30
+
+    def marginal_residual(z):
+        zd = z.double()
+        r = (torch.logsumexp(zd, 2) - mu.double())[mu > -1e8]
+        c = (torch.logsumexp(zd, 1) - nu.double())[nu > -1e8]
+        return max(r.abs().max().item(), c.abs().max().item())
+    res_k, res_p = marginal_residual(zk), marginal_residual(zp)
+    shift = norm[:, None, None]
+    ik, ok_k, _ = superglue.decode(zk - shift, m0, 0.5)
+    ip, ok_p, _ = superglue.decode(zp - shift, m0, 0.5)
+    agree = (ik == ip)[m0].double().mean().item()
+    res = {"max_abs_err": err, "masked_max": masked, "marginal_residual": res_k,
+           "plain_marginal_residual": res_p, "match_agree": agree,
+           "matches": int(ok_k.sum().item())}
+    log("sinkhorn", f"{label}: " + json.dumps(res))
+    check(err <= 1e-4, f"{label}: kernel off the plain version by {err} > 1e-4")
+    check(masked <= -1e8, f"{label}: a masked entry reached {masked} > -1e8")
+    if marginal_tol is None:
+        check(res_k <= res_p + 1e-4, f"{label}: marginal residual {res_k} vs plain {res_p}")
+    else:
+        check(res_k <= marginal_tol, f"{label}: marginal residual {res_k} > {marginal_tol}")
+    check(agree >= 0.999, f"{label}: decoded matches agree on {agree:.5f} < 0.999 of rows")
+    return res
+
+
+def sinkhorn_bound(m0, m1, iters: int):
+    """The least time for the work: the exponentials the data needs at the
+    special-function units' rate (SMs x 16 per clock x the card's maximum
+    SM clock from nvidia-smi), against C in and Z out (plus the marginals)
+    at the memory rate. A pair with n0 and n1 valid keypoints takes
+    (n0 + 1) x (n1 + 1) exponentials (the bins included) in each half-step
+    of each iteration: a masked entry of a valid row or column is exp(-1e9)
+    = 0 in float32, and a masked row's or column's log-sum-exp is its bin
+    alone. Returns (ms, bound_by, detail)."""
+    import torch
+    B, M = m0.shape
+    N = m1.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    n0 = m0.sum(1).double() + 1
+    n1 = m1.sum(1).double() + 1
+    exps = 2.0 * iters * float((n0 * n1).sum().item())
+    t_ops = exps / (sms * SFU_EXP_PER_CLOCK_PER_SM * mhz * 1e6) * 1e3
+    M1, N1 = M + 1, N + 1
+    t_bytes = (2 * B * M1 * N1 + B * (M1 + N1)) * 4 / HBM_BYTES_PER_S * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, {"exps": exps, "sms": sms, "sm_clock_mhz": mhz,
+                                     "ops_ms": t_ops, "bytes_ms": t_bytes}
+
+
+def time_sinkhorn(scores, alpha, m0, m1, iters: int, label: str):
+    """Kernel and plain times (CUDA events, warm) beside the bound. No
+    single PyTorch call computes this function, so there is no library
+    time."""
+    from reconstructor_tpu_torch.matching import cuda_sinkhorn
+    C, mu, nu, _ = cuda_sinkhorn.augment(scores, alpha, m0, m1)
+    B, M1, N1 = C.shape
+    ms = cuda_ms(lambda: cuda_sinkhorn.sinkhorn_kernel(C, mu, nu, iters))
+    plain_ms = cuda_ms(lambda: cuda_sinkhorn.sinkhorn_plain(C, mu, nu, iters), iters=3, warmup=1)
+    bound, by, detail = sinkhorn_bound(m0, m1, iters)
+    res = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
+           "bound_by": by, **detail}
+    log("timing", f"sinkhorn {label} (B={B} M1={M1} N1={N1} iters={iters}): " + json.dumps(res))
+    return res
+
+
+def phase_sinkhorn(dev):
+    import torch
+    from reconstructor_tpu_torch.matching import cuda_sinkhorn
+    alpha = torch.tensor(1.0, device=dev)
+    for B, K, iters, plant in ((8, 1024, 100, 10.0), (8, 256, 50, 8.0)):
+        scores, m0, m1 = sinkhorn_inputs(B, K, seed=K, plant=plant, dev=dev)
+        label = f"random K={K} B={B} iters={iters}"
+        compare_sinkhorn(scores, alpha, m0, m1, iters, label)
+        time_sinkhorn(scores, alpha, m0, m1, iters, label)
+    cuda_sinkhorn.reset_launches()
+
+
+# ----------------------------------------------------------------------
+# end to end
+# ----------------------------------------------------------------------
+
+def render_views(n_views: int = 25, h: int = 384, w: int = 512, tex_size: int = 1024,
+                 n_blobs: int = 1200):
+    """The fountain-sized scene, rendered once for both end-to-end phases."""
+    import numpy as np
+    from reconstructor_tpu_torch.eval import render
+    from reconstructor_tpu_torch.io import images as io_images
     t = time.perf_counter()
     scene = render.make_scene(seed=0, n_views=n_views, h=h, w=w, tex_size=tex_size,
                               n_blobs=n_blobs, focal_px=1.2 * max(h, w))
     imgs = [io_images.from_rgb(np.repeat((im * 255).astype(np.uint8)[..., None], 3, -1),
                                path=f"view{i:02d}")
             for i, im in enumerate(scene["images"])]
-    log("e2e", f"rendered {n_views} views {h}x{w} in {time.perf_counter() - t:.1f}s")
+    log("render", f"rendered {n_views} views {h}x{w} in {time.perf_counter() - t:.1f}s")
+    return scene, imgs
 
-    cfg = cfg or ReconstructorConfig()
+
+def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 23):
+    """Drive one path through the user's entry points with every kernel's
+    launch counter set to 0 just before and read just after, and check
+    the reconstruction. Returns (reconstructor, state, launches, summary)."""
+    import numpy as np
+    import torch
+    from reconstructor_tpu_torch.eval import synth
+    from reconstructor_tpu_torch.matching import cuda_knn, cuda_sinkhorn
+    from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
+
+    n_views = len(imgs)
+    out = os.path.join(tmp, phase)
     rec = IncrementalReconstructor(cfg, verbose=False, device=dev)
     cuda_knn.reset_launches()
+    cuda_sinkhorn.reset_launches()
     t = time.perf_counter()
     state = rec.detect_features_from_images(imgs)
     torch.cuda.synchronize()
     t_detect = time.perf_counter() - t
     counts = state.kp_mask.sum(1)
-    log("e2e", f"detect {t_detect:.2f}s, keypoints per view {int(counts.min())}..{int(counts.max())}")
+    log(phase, f"detect {t_detect:.2f}s, keypoints per view {counts.tolist()}")
     t = time.perf_counter()
-    state = rec.reconstruct_from_state(state, out_folder=os.path.join(tmp, "out"))
+    state = rec.reconstruct_from_state(state, out_folder=out)
     torch.cuda.synchronize()
     t_rec = time.perf_counter() - t
-    launches = cuda_knn.LAUNCHES
+    launches = {"knn_top2": cuda_knn.LAUNCHES, "sinkhorn": cuda_sinkhorn.LAUNCHES}
     for name, ms in rec.timer.totals().items():
-        log("e2e", f"stage '{name}': {ms / 1e3:.2f}s")
+        log(phase, f"stage '{name}': {ms / 1e3:.2f}s")
     ate = synth.pose_ate(state.poses, scene["poses"])
     n_reg = len(state.registered)
-    log("e2e", f"reconstruct {t_rec:.2f}s: registered {n_reg}/{n_views} views, "
-               f"{state.num_landmarks} landmarks, normalised ATE "
-               f"{ate['ate_rmse_normalized'] * 100:.2f}%, knn kernel launches {launches}")
-    check(launches > 0, "the main path never launched the kNN kernel")
-    check(n_reg >= min_registered, f"registered only {n_reg} of {n_views} views")
-    check(ate["ate_rmse_normalized"] < 0.10, f"normalised ATE {ate['ate_rmse_normalized']}")
-    check(np.isfinite(state.lm_xyz).all(), "non-finite landmarks")
-    check(os.path.getsize(os.path.join(tmp, "out", "clouds", "cloud_final.ply")) > 0,
-          "no PLY written")
+    log(phase, f"reconstruct {t_rec:.2f}s: registered {n_reg}/{n_views} views, "
+               f"{len(state.matches)} matched pairs, {state.num_landmarks} landmarks, "
+               f"normalised ATE {ate['ate_rmse_normalized'] * 100:.2f}%, "
+               f"kernel launches {json.dumps(launches)}")
+    check(n_reg >= min_registered, f"{phase}: registered only {n_reg} of {n_views} views")
+    check(ate["ate_rmse_normalized"] < 0.10,
+          f"{phase}: normalised ATE {ate['ate_rmse_normalized']}")
+    check(np.isfinite(state.lm_xyz).all(), f"{phase}: non-finite landmarks")
+    check(os.path.getsize(os.path.join(out, "clouds", "cloud_final.ply")) > 0,
+          f"{phase}: no PLY written")
+    summary = {"registered": n_reg, "landmarks": int(state.num_landmarks),
+               "matched_pairs": len(state.matches),
+               "ate_normalized": ate["ate_rmse_normalized"],
+               "detect_s": t_detect, "reconstruct_s": t_rec,
+               "stages_s": {k: v / 1e3 for k, v in rec.timer.totals().items()}}
+    return rec, state, launches, summary
+
+
+def phase_e2e(dev, tmp: str, scene, imgs, cfg):
+    """The default path; then the kNN kernel on the inputs it was given."""
+    import torch
+    rec, state, launches, summary = run_path(dev, tmp, "e2e", scene, imgs, cfg)
+    check(launches["knn_top2"] > 0, "the default path never launched the kNN kernel")
+    cfg = rec.config
 
     # the kernel on the very inputs the main path gave it
     desc_d, mask_d, _ = rec._device_frontend(state)
@@ -371,15 +563,86 @@ def phase_e2e(dev, tmp: str, n_views: int = 25, h: int = 384, w: int = 512,
     res, _ = compare_knn(desc16, mask_d, chunk, exact=False, tol=1e-5,
                          min_match_agree=0.999, label="main-path inputs bf16")
     timing = time_knn(desc16, mask_d, chunk, "main-path inputs")
-    return launches, res, timing, {"registered": n_reg, "landmarks": int(state.num_landmarks),
-                                   "ate_normalized": ate["ate_rmse_normalized"],
-                                   "detect_s": t_detect, "reconstruct_s": t_rec}
+    return launches["knn_top2"], res, timing, summary
+
+
+def phase_learned(dev, tmp: str, scene, imgs, cfg):
+    """The learned path; then the Sinkhorn kernel on the scores of the
+    run's first chunk of pairs."""
+    import torch
+    from reconstructor_tpu_torch.matching import superglue
+    rec, state, launches, summary = run_path(dev, tmp, "learned", scene, imgs, cfg)
+    check(launches["sinkhorn"] > 0, "the learned path never launched the Sinkhorn kernel")
+    log("learned", f"landmarks {summary['landmarks']} (the JAX package on the CPU: 25/25 "
+                   f"views, 3801 landmarks, 4.33% ATE on this scene and settings)")
+
+    cfg = rec.config
+    net = rec._superglue_params()
+    first = rec.select_pairs(state)[:cfg.superglue_chunk_pairs]
+    with torch.no_grad():
+        scores, m0, m1 = superglue.pair_scores(
+            net, rec._t(state.desc), rec._t(state.xy), rec._t(state.kp_score),
+            rec._t(state.kp_mask), rec._t(state.shapes), rec._t(first.astype("int32")))
+    label = f"main-path chunk ({len(first)} pairs, K={scores.shape[1]})"
+    res = compare_sinkhorn(scores, net.bin_score, m0, m1, cfg.superglue_sinkhorn_iters, label,
+                           marginal_tol=None)
+    timing = time_sinkhorn(scores, net.bin_score, m0, m1, cfg.superglue_sinkhorn_iters,
+                           "main-path chunk")
+    trained_gnn_on_card(dev, rec, state, first)
+    return launches["sinkhorn"], res, timing, summary
+
+
+def trained_gnn_on_card(dev, rec, state, pair_idx):
+    """The structured SuperGlue's zeroed last layers discard every
+    attention and MLP output, so the e2e run cannot show a fault of the GNN
+    on the card (heads layout, matmul precision). Here the trained 4-layer
+    ``tests/data/superglue_fountain.npz`` (which the CPU tests hold to the
+    JAX package) scores the e2e run's first chunk on the card and on the
+    CPU. Scores agree within 1e-4 of their scale plus 1e-4 relative, as the
+    CPU tests hold the port to JAX (float32 both, sums in another order);
+    the matches decoded from each (the Sinkhorn kernel on both) agree on
+    >= 99.5% of valid rows, leaving room for rows whose two best entries,
+    or whose best and the 0.5 threshold, lie within that error."""
+    import torch
+    from reconstructor_tpu_torch.matching import cuda_sinkhorn, superglue
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "data", "superglue_fountain.npz")
+    cpu = torch.device("cpu")
+    out = []
+    for d in (dev, cpu):
+        net = superglue.params_from_npz(path).to(d)
+        arrays = [torch.as_tensor(a, device=d) for a in
+                  (state.desc, state.xy, state.kp_score, state.kp_mask, state.shapes,
+                   pair_idx.astype("int32"))]
+        t = time.perf_counter()
+        with torch.no_grad():
+            out.append(superglue.pair_scores(net, *arrays)[0].to(dev))
+        torch.cuda.synchronize()
+        log("learned", f"trained 4-layer GNN on {d.type}: {time.perf_counter() - t:.2f}s")
+    m0 = rec._t(state.kp_mask)[torch.as_tensor(pair_idx[:, 0]).long()]
+    m1 = rec._t(state.kp_mask)[torch.as_tensor(pair_idx[:, 1]).long()]
+    got, want = out
+    valid = m0[:, :, None] & m1[:, None, :]
+    err = (got - want).abs()[valid].max().item()
+    scale = want.abs()[valid].max().item()
+    rel_ok = bool(((got - want).abs() <= 1e-4 * scale + 1e-4 * want.abs())[valid].all())
+    alpha = net.bin_score.to(dev)
+    iters = rec.config.superglue_sinkhorn_iters
+    dec = [superglue.decode(cuda_sinkhorn.log_sinkhorn_fused(sc, alpha, m0, m1, iters), m0, 0.5)
+           for sc in (got, want)]
+    agree = (dec[0][0] == dec[1][0])[m0].double().mean().item()
+    res = {"max_abs_err": err, "scale": scale, "match_agree": agree,
+           "matches_card": int(dec[0][1].sum().item()), "matches_cpu": int(dec[1][1].sum().item())}
+    log("learned", "trained 4-layer GNN, card vs CPU on the first chunk: " + json.dumps(res))
+    check(rel_ok, f"trained GNN scores on the card off the CPU's by {err} (scale {scale})")
+    check(agree >= 0.995, f"trained GNN matches, card vs CPU, agree on {agree:.5f} < 0.995")
+    return res
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rng-seed", type=int, default=0,
-                    help="the reconstructor's RANSAC seed (config.rng_seed) in the e2e phase")
+                    help="the reconstructor's RANSAC seed (config.rng_seed) in the e2e phases")
     args = ap.parse_args(argv)
 
     import torch
@@ -394,36 +657,57 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, here)
     from reconstructor_tpu_torch.config import ReconstructorConfig
-    from reconstructor_tpu_torch.matching import cuda_knn
+    from reconstructor_tpu_torch.matching import cuda_knn, cuda_sinkhorn
     from reconstructor_tpu_torch.utils import cuda_build
 
     dev = torch.device("cuda", 0)
-    smi = nvidia_smi_line()
+    smi = nvidia_smi()
     print(smi, flush=True)
     log("device", f"{torch.cuda.get_device_name(0)} | torch {torch.__version__} "
                   f"cuda {torch.version.cuda} | nvidia-smi: {smi}")
 
-    t = time.perf_counter()
-    cuda_build.load(cuda_knn.SOURCE)
-    log("build", f"{cuda_knn.SOURCE}: {time.perf_counter() - t:.1f}s")
+    # one nvcc per source, all started together
+    def build(src):
+        t = time.perf_counter()
+        cuda_build.load(src)
+        return src, time.perf_counter() - t
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for src, secs in pool.map(build, [cuda_knn.SOURCE, cuda_sinkhorn.SOURCE]):
+            log("build", f"{src}: {secs:.1f}s")
 
     desc, mask, chunk = phase_kernels(dev)
     phase_timing(desc, mask, chunk)
     del desc, mask
     torch.cuda.empty_cache()
+    phase_sinkhorn(dev)
 
-    kernel = {"name": "knn_top2", "route": "cuda",
-              "source": "reconstructor_tpu_torch/" + cuda_knn.SOURCE,
-              "replaces": cuda_knn.REPLACES}
+    scene, imgs = render_views()
+    sp_weights = os.path.join(here, "tests", "data", "superpoint_synth.npz")
+    kernels = []
     with tempfile.TemporaryDirectory() as tmp:
         launches, res, t, summary = phase_e2e(
-            dev, tmp, cfg=ReconstructorConfig(rng_seed=args.rng_seed))
-    kernel.update(launches=launches, max_abs_err=res["max_abs_err"], ms=t["ms"],
-                  plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                  library_ms=t["library_ms"])
-    log("e2e", json.dumps(summary))
+            dev, tmp, scene, imgs, ReconstructorConfig(rng_seed=args.rng_seed))
+        kernels.append({"name": "knn_top2", "route": "cuda",
+                        "source": "reconstructor_tpu_torch/" + cuda_knn.SOURCE,
+                        "replaces": cuda_knn.REPLACES, "launches": launches,
+                        "max_abs_err": res["max_abs_err"], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        log("e2e", json.dumps(summary))
+        learned_cfg = ReconstructorConfig(
+            detector="superpoint", matcher="superglue", superpoint_weights=sp_weights,
+            superglue_weights="structured", max_keypoints=1024, focal_px=614.4,
+            rng_seed=args.rng_seed)
+        launches, res, t, summary = phase_learned(dev, tmp, scene, imgs, learned_cfg)
+        kernels.append({"name": "sinkhorn", "route": "cuda",
+                        "source": "reconstructor_tpu_torch/" + cuda_sinkhorn.SOURCE,
+                        "replaces": cuda_sinkhorn.REPLACES, "launches": launches,
+                        "max_abs_err": res["max_abs_err"], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": None})
+        log("learned", json.dumps(summary))
     log("done", f"total {time.perf_counter() - T0:.1f}s")
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

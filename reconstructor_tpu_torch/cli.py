@@ -4,7 +4,13 @@
         --max-keypoints 4096 [--device cuda]
 
 Runs the default path (SIFT, kNN + fundamental gate, PnP, dense-Schur
-BA) and writes ``clouds/cloud_final.ply`` and ``report.json``.
+BA), or the learned path with ``--detector superpoint --matcher
+superglue``, and writes ``clouds/cloud_final.ply`` and ``report.json``:
+
+    python -m reconstructor_tpu_torch IMG_FOLDER OUT_FOLDER \
+        --detector superpoint --matcher superglue \
+        --superpoint-weights tests/data/superpoint_synth.npz \
+        --superglue-weights structured
 """
 
 from __future__ import annotations
@@ -21,11 +27,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("out_folder", help="output folder (clouds/ written here)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
+    p.add_argument("--detector", choices=["sift", "orb", "superpoint"], default="sift",
+                   help="orb is not built in this package yet")
+    p.add_argument("--matcher", choices=["knn", "superglue"], default="knn")
     p.add_argument("--max-keypoints", type=int, default=2048)
     p.add_argument("--img-max-size", type=int, default=512)
     p.add_argument("--focal-px", type=float, default=None,
                    help="known focal length in pixels (else colmap-style prior)")
     p.add_argument("--focal-factor", type=float, default=1.2)
+    p.add_argument("--superpoint-weights", default=None,
+                   help=".npz (JAX package layout) or magicleap .pth; none = random init")
+    p.add_argument("--superglue-weights", default=None,
+                   help="'structured', .npz or magicleap .pth; none = random init")
     p.add_argument("--save-intermediate", action="store_true",
                    help="dump cloud_before_i/cloud_after_i each iteration")
     p.add_argument("--pair-selection", choices=["exhaustive", "retrieval"],
@@ -48,6 +61,9 @@ def main(argv=None) -> int:
     from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
 
     cfg = ReconstructorConfig(
+        detector=args.detector, matcher=args.matcher,
+        superpoint_weights=args.superpoint_weights,
+        superglue_weights=args.superglue_weights,
         max_keypoints=args.max_keypoints, img_max_size=args.img_max_size,
         focal_px=args.focal_px, focal_length_factor=args.focal_factor,
         pair_selection=args.pair_selection, retrieval_top_k=args.retrieval_top_k)

@@ -1,8 +1,10 @@
 r"""Configuration for the PyTorch/CUDA SfM engine.
 
 Field for field the configuration of ``reconstructor_tpu``, so one set of
-keyword arguments drives either package, except the TPU package's
-``knn_use_pallas`` switch: on the card the CUDA top-2 kernel always runs.
+keyword arguments drives either package, except the TPU package's two
+kernel switches, ``knn_use_pallas`` and ``superglue_use_pallas_sinkhorn``:
+on the card the CUDA top-2 kNN kernel and the CUDA Sinkhorn kernel always
+run, and no setting sends the card to their plain versions.
 
 The reference hardcodes every knob as enums, ``#define``\ s and member
 defaults scattered over headers (SURVEY.md §5 "Config / flag system"); this
@@ -51,8 +53,10 @@ class ReconstructorConfig:
     superpoint_conf_thresh: float = 0.015
     superpoint_nms_radius: int = 4
     superpoint_border: int = 4
-    # torch checkpoint paths (magicleap superpoint_v1.pth /
-    # superglue_outdoor.pth); None -> random init (tests only)
+    # weights: an .npz in the JAX package's layout (tests/data), a torch
+    # checkpoint (magicleap superpoint_v1.pth / superglue_outdoor.pth),
+    # "structured" for SuperGlue (identity GNN, see matching.superglue),
+    # or None -> seeded random init (tests only)
     superpoint_weights: Optional[str] = None
     superglue_weights: Optional[str] = None
 
@@ -75,8 +79,7 @@ class ReconstructorConfig:
     cross_check: bool = True         # mutual-nearest constraint
     superglue_score_thresh: float = 0.5
     superglue_sinkhorn_iters: int = 100
-    superglue_use_pallas_sinkhorn: bool = True  # learned path, not in this package yet
-    superglue_chunk_pairs: int = 8   # pairs per vmapped SuperGlue dispatch
+    superglue_chunk_pairs: int = 8   # pairs per SuperGlue chunk (GNN + Sinkhorn launch)
     min_matches_for_filter: int = 7  # need >=7 for F estimation
 
     # ---- geometric verification ----------------------------------------
@@ -87,7 +90,7 @@ class ReconstructorConfig:
     # inlier fraction is high, so a smaller budget loses nothing and the
     # batched 9x9 nullspace solves dominate matching cost otherwise.
     fundamental_num_hypotheses: int = 512
-    filter_chunk_pairs: int = 64         # (the JAX package's separate F-gate chunk)
+    filter_chunk_pairs: int = 64         # pairs per F-gate chunk after SuperGlue
     match_chunk_pairs: int = 256         # pairs per matching+gate chunk, plain matcher
     # Pairs per chunk on the CUDA-kernel path. The kernel keeps the (K, K)
     # distance tile out of device memory, so memory does not bound the

@@ -46,7 +46,7 @@ class Features(NamedTuple):
     xy: torch.Tensor       # (..., K, 2) float32 — (x, y) pixel coords
     scale: torch.Tensor    # (..., K) float32 — detection sigma
     score: torch.Tensor    # (..., K) float32 — |DoG| response
-    desc: torch.Tensor     # (..., K, 128) float32 — L2-normalized descriptor
+    desc: torch.Tensor     # (..., K, D) float32 — L2-normalized descriptor (SIFT 128, SuperPoint 256)
     mask: torch.Tensor     # (..., K) bool
 
 

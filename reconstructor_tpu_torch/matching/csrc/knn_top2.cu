@@ -16,9 +16,12 @@
 // ~4,000 flops per byte, far above the card's ~20 (f32 SIMT) to ~295
 // (bf16 tensor core) flops-per-byte ridge. The design keeps the (K, K)
 // distance matrix out of device memory entirely, as the TPU kernel keeps
-// it in VMEM: a block owns 64 rows of image i, streams image j through
-// shared memory 64 columns at a time, and reduces each 64x64 distance
-// tile in registers. Products run as float32 FMAs on the SIMT units
+// it in VMEM: a block owns 64 rows of image i (all D channels in shared
+// memory), streams image j through shared memory 64 columns by 128
+// channels at a time, accumulating each 64x64 tile's dot products over
+// the D / 128 channel slices, and reduces the tile in registers. D is any
+// multiple of 128 up to 512 (SIFT 128, SuperPoint 256), as the TPU
+// kernel takes any multiple of 128. Products run as float32 FMAs on the SIMT units
 // (bf16 inputs widen exactly to float32, so the bf16 path is the same
 // bf16-in, f32-accumulate arithmetic as the TPU's MXU pass); tensor-core
 // (wgmma) products are the next step for speed, not needed for
@@ -40,7 +43,8 @@
 
 namespace {
 
-constexpr int kD = 128;       // descriptor width
+constexpr int kD = 128;       // descriptor channels per slice of image j
+constexpr int kMaxD = 512;    // widest descriptor (shared memory: (D + 128) x 68 floats)
 constexpr int kTR = 64;       // rows of image i per block
 constexpr int kTC = 64;       // columns of image j per tile
 constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
@@ -50,28 +54,29 @@ constexpr float kBig = 1e30f;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-// 64 consecutive descriptors (row-major, kD values each) -> dst[d][r]
+// channels [d0, d0 + width) of 64 consecutive descriptors (row-major, D
+// values each) -> dst[d - d0][r]
 template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
-                                          float* __restrict__ dst, int tid) {
+__device__ __forceinline__ void load_tile(const T* __restrict__ src, int D, int d0,
+                                          int width, float* __restrict__ dst, int tid) {
 #pragma unroll 4
-  for (int e = tid; e < kTR * kD; e += kThreads) {
-    const int r = e / kD;
-    const int d = e - r * kD;
-    dst[d * kLds + r] = to_f32(src[(size_t)r * kD + d]);
+  for (int e = tid; e < kTR * width; e += kThreads) {
+    const int r = e / width;
+    const int d = e - r * width;
+    dst[d * kLds + r] = to_f32(src[(size_t)r * D + d0 + d]);
   }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 knn_top2_kernel(const T* __restrict__ desc, const float* __restrict__ bias,
-                const int* __restrict__ pairs, int K,
+                const int* __restrict__ pairs, int K, int D,
                 float* __restrict__ best_out, float* __restrict__ second_out,
                 int* __restrict__ arg_out,
                 unsigned long long* __restrict__ colbest) {
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;              // [kD][kLds] rows of image i
-  float* Bs = smem + kD * kLds;  // [kD][kLds] current column tile of image j
+  float* As = smem;              // [D][kLds] rows of image i
+  float* Bs = smem + D * kLds;   // [kD][kLds] current column tile slice of image j
   __shared__ unsigned long long colpart[kThreads / 32][kTC];
 
   const int tid = threadIdx.x;
@@ -83,12 +88,12 @@ knn_top2_kernel(const T* __restrict__ desc, const float* __restrict__ bias,
   const int row0 = blockIdx.x * kTR;
   const int img_i = pairs[2 * p];
   const int img_j = pairs[2 * p + 1];
-  const T* di = desc + ((size_t)img_i * K + row0) * kD;
-  const T* dj = desc + (size_t)img_j * K * kD;
+  const T* di = desc + ((size_t)img_i * K + row0) * D;
+  const T* dj = desc + (size_t)img_j * K * D;
   const float* bi = bias + (size_t)img_i * K;
   const float* bj = bias + (size_t)img_j * K;
 
-  load_tile(di, As, tid);
+  load_tile(di, D, 0, D, As, tid);
 
   float bias_r[4], best[4], second[4];
   int barg[4];
@@ -101,26 +106,28 @@ knn_top2_kernel(const T* __restrict__ desc, const float* __restrict__ bias,
   }
 
   for (int c0 = 0; c0 < K; c0 += kTC) {
-    __syncthreads();  // As loaded / previous tile's Bs and colpart consumed
-    load_tile(dj + (size_t)c0 * kD, Bs, tid);
-    __syncthreads();
-
     float acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
+    for (int d0 = 0; d0 < D; d0 += kD) {
+      __syncthreads();  // As loaded / previous slice's Bs and colpart consumed
+      load_tile(dj + (size_t)c0 * D, D, d0, kD, Bs, tid);
+      __syncthreads();
+      const float* Ad = As + d0 * kLds;
 #pragma unroll 8
-    for (int d = 0; d < kD; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[d * kLds + ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[d * kLds + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+      for (int d = 0; d < kD; ++d) {
+        const float4 a = *reinterpret_cast<const float4*>(&Ad[d * kLds + ty * 4]);
+        const float4 b = *reinterpret_cast<const float4*>(&Bs[d * kLds + tx * 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
     }
 
     float bcol[4];
@@ -206,9 +213,9 @@ __global__ void knn_colarg_kernel(const unsigned long long* __restrict__ colbest
 
 template <typename T>
 cudaError_t launch(const void* desc, const float* bias, const int* pairs, int B,
-                   int K, float* best, float* second, int* arg, int* colarg,
+                   int K, int D, float* best, float* second, int* arg, int* colarg,
                    unsigned long long* colbest, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)kD * kLds * sizeof(float);
+  const size_t smem = (size_t)(D + kD) * kLds * sizeof(float);
   // above 48 KB of dynamic shared memory a kernel must opt in (cheap;
   // set on every launch so it holds for whichever device is current)
   cudaError_t e = cudaFuncSetAttribute(
@@ -218,7 +225,7 @@ cudaError_t launch(const void* desc, const float* bias, const int* pairs, int B,
   if (e != cudaSuccess) return e;
   const dim3 grid(K / kTR, B);
   knn_top2_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(desc), bias, pairs, K, best, second, arg, colbest);
+      static_cast<const T*>(desc), bias, pairs, K, D, best, second, arg, colbest);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long n = (long long)B * K;
@@ -230,20 +237,23 @@ cudaError_t launch(const void* desc, const float* bias, const int* pairs, int B,
 
 extern "C" {
 
-// dtype: 0 = float32 descriptors, 1 = bfloat16. desc (N, K, 128) row-major,
+// dtype: 0 = float32 descriptors, 1 = bfloat16. desc (N, K, D) row-major,
 // bias (N, K) float32, pairs (B, 2) int32, outputs (B, K); colbest is
-// (B, K) 64-bit scratch. K must be a multiple of 64; 0 < B <= 65535.
-// Returns the CUDA status of the launches (0 = success).
+// (B, K) 64-bit scratch. K must be a multiple of 64, D a multiple of 128
+// up to 512; 0 < B <= 65535. Returns the CUDA status of the launches
+// (0 = success).
 int knn_top2_launch(const void* desc, int dtype, const float* bias,
-                    const int* pairs, int B, int K, float* best, float* second,
+                    const int* pairs, int B, int K, int D, float* best, float* second,
                     int* arg, int* colarg, unsigned long long* colbest,
                     void* stream) {
   if (K <= 0 || K % kTC != 0 || B <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D % kD != 0 || D > kMaxD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(desc, bias, pairs, B, K, best, second, arg, colarg, colbest, s);
+    return (int)launch<float>(desc, bias, pairs, B, K, D, best, second, arg, colarg, colbest,
+                              s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(desc, bias, pairs, B, K, best, second, arg, colarg,
+    return (int)launch<__nv_bfloat16>(desc, bias, pairs, B, K, D, best, second, arg, colarg,
                                       colbest, s);
   return (int)cudaErrorInvalidValue;
 }

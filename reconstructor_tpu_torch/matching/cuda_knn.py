@@ -46,7 +46,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_knn_bound", False):
         vp = ctypes.c_void_p
         lib.knn_top2_launch.argtypes = [vp, ctypes.c_int, vp, vp, ctypes.c_int,
-                                        ctypes.c_int, vp, vp, vp, vp, vp, vp]
+                                        ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, vp, vp]
         lib.knn_top2_launch.restype = ctypes.c_int
         lib.knn_top2_error_string.argtypes = [ctypes.c_int]
         lib.knn_top2_error_string.restype = ctypes.c_char_p
@@ -55,8 +55,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def supported(K: int, D: int) -> bool:
-    """Whether the kernel handles this descriptor layout."""
-    return K % 128 == 0 and D == 128
+    """Whether the kernel handles this descriptor layout: K a multiple of
+    128, D a multiple of 128 up to 512 (SIFT 128, SuperPoint 256)."""
+    return K % 128 == 0 and D % 128 == 0 and 0 < D <= 512
 
 
 def knn_topk2_plain(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor,
@@ -101,7 +102,8 @@ def knn_topk2(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor):
     if desc.dtype not in _DTYPE_CODE:
         raise TypeError(f"knn_topk2: descriptors must be float32 or bfloat16, got {desc.dtype}")
     if not supported(K, D):
-        raise ValueError(f"knn_topk2: need K % 128 == 0 and D == 128, got K={K} D={D}")
+        raise ValueError(f"knn_topk2: need K % 128 == 0 and D a multiple of 128 up to 512, "
+                         f"got K={K} D={D}")
     if bias.dtype != torch.float32 or tuple(bias.shape) != (N, K):
         raise ValueError(f"knn_topk2: bias must be float32 (N, K), got {bias.dtype} {tuple(bias.shape)}")
     if pair_idx.dtype != torch.int32 or pair_idx.dim() != 2 or pair_idx.shape[1] != 2:
@@ -124,7 +126,7 @@ def knn_topk2(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.knn_top2_launch(
             desc.data_ptr(), _DTYPE_CODE[desc.dtype], bias.data_ptr(),
-            pair_idx.data_ptr(), B, K, best.data_ptr(), second.data_ptr(),
+            pair_idx.data_ptr(), B, K, D, best.data_ptr(), second.data_ptr(),
             arg.data_ptr(), colarg.data_ptr(), colbest.data_ptr(), stream)
     if status != 0:
         raise RuntimeError("knn_top2 launch failed: "

@@ -1,0 +1,160 @@
+"""Log-space Sinkhorn with dust bins: a hand-written CUDA kernel for Hopper.
+
+Counterpart of ``reconstructor_tpu/matching/pallas_sinkhorn.py``: the TPU
+package's Pallas ``_sinkhorn_kernel`` becomes ``csrc/sinkhorn.cu`` (whose
+header says what bounds it on an H100 and how its design answers that),
+built with ``nvcc`` for ``sm_90a`` at first use and called through
+``ctypes``. On a chunk of B pairs it runs ``num_iters`` alternating
+updates on the (M+1, N+1) augmented coupling C,
+u = log_mu - LSE_row(C + v^T), then v = log_nu - LSE_col(C + u), and
+returns C + u + v^T.
+
+``log_sinkhorn_fused`` builds the coupling and the marginals exactly as
+``pallas_sinkhorn.log_sinkhorn_fused`` does and subtracts the norm: the
+JAX package's ``superglue.log_sinkhorn``. ``sinkhorn_kernel`` is the
+wrapper: on a CUDA tensor it launches the kernel or raises; on a CPU
+tensor it runs ``sinkhorn_plain``, the same loop in plain PyTorch, which
+is also what the kernel is held against on the card. ``LAUNCHES`` counts
+kernel launches (plain-version calls do not count).
+
+Size: the kernel takes any chunk whose rows and columns (B*(M+1) and
+B*(N+1)) index in 32 bits, so every ``max_keypoints`` the configuration
+allows; at K = 4096 a pair's coupling is 67 MB and no longer stays in the
+card's L2, which costs time, not correctness. The JAX package's fallback
+to its XLA loop above 12 MiB (``superglue.py:348-353``,
+``pallas_sinkhorn.supported``) is a limit of the TPU's VMEM and has no
+counterpart here: on the card the kernel runs at every size or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from reconstructor_tpu_torch.utils import cuda_build
+
+SOURCE = "matching/csrc/sinkhorn.cu"
+REPLACES = "reconstructor_tpu/matching/pallas_sinkhorn.py:32"   # _sinkhorn_kernel
+_BIG_NEG = -1e9
+_INDEX_LIMIT = 2 ** 31 - 1
+
+LAUNCHES = 0
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load(SOURCE)
+    if not getattr(lib, "_sinkhorn_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.sinkhorn_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, vp]
+        lib.sinkhorn_launch.restype = ci
+        lib.sinkhorn_error_string.argtypes = [ci]
+        lib.sinkhorn_error_string.restype = ctypes.c_char_p
+        lib._sinkhorn_bound = True
+    return lib
+
+
+def supported(B: int, M1: int, N1: int) -> bool:
+    """Whether the kernel takes a (B, M1, N1) coupling."""
+    return B >= 1 and M1 >= 1 and N1 >= 1 and B * max(M1, N1) <= _INDEX_LIMIT
+
+
+def augment(scores: torch.Tensor, alpha: torch.Tensor, mask0: torch.Tensor,
+            mask1: torch.Tensor):
+    """The dust-bin coupling and marginals of ``pallas_sinkhorn.py:102-125``.
+
+    scores (B, M, N); alpha scalar; masks (B, M) / (B, N). Returns
+    (couplings (B, M+1, N+1), log_mu (B, M+1), log_nu (B, N+1), norm (B,)).
+    """
+    B, M, N = scores.shape
+    dt = scores.dtype
+    scores = torch.where(mask0[:, :, None] & mask1[:, None, :], scores, _BIG_NEG)
+    a = alpha.to(dt)
+    couplings = torch.cat([
+        torch.cat([scores, a.expand(B, M, 1)], dim=2),
+        torch.cat([a.expand(B, 1, N), a.expand(B, 1, 1)], dim=2),
+    ], dim=1)
+    m_eff = torch.sum(mask0, dim=1).to(dt)
+    n_eff = torch.sum(mask1, dim=1).to(dt)
+    norm = -torch.log(m_eff + n_eff + 1e-9)
+    log_mu = torch.cat([torch.where(mask0, norm[:, None], _BIG_NEG),
+                        (torch.log(n_eff + 1e-9) + norm)[:, None]], dim=1)
+    log_nu = torch.cat([torch.where(mask1, norm[:, None], _BIG_NEG),
+                        (torch.log(m_eff + 1e-9) + norm)[:, None]], dim=1)
+    return couplings, log_mu, log_nu, norm
+
+
+def sinkhorn_plain(couplings: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
+                   num_iters: int) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: couplings (B, M1, N1),
+    log_mu (B, M1), log_nu (B, N1). Returns couplings + u + v^T."""
+    B, M1, N1 = couplings.shape
+    u = torch.zeros((B, M1), dtype=couplings.dtype, device=couplings.device)
+    v = torch.zeros((B, N1), dtype=couplings.dtype, device=couplings.device)
+    for _ in range(num_iters):
+        u = log_mu - torch.logsumexp(couplings + v[:, None, :], dim=2)
+        v = log_nu - torch.logsumexp(couplings + u[:, :, None], dim=1)
+    return couplings + u[:, :, None] + v[:, None, :]
+
+
+def sinkhorn_kernel(couplings: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
+                    num_iters: int) -> torch.Tensor:
+    """Run the Sinkhorn loop; see ``sinkhorn_plain``.
+
+    On a CUDA tensor this launches ``csrc/sinkhorn.cu`` (or raises); the
+    plain version runs only for tensors on the CPU.
+    """
+    if couplings.device.type == "cpu":
+        return sinkhorn_plain(couplings, log_mu, log_nu, num_iters)
+    if couplings.device.type != "cuda":
+        raise ValueError(f"sinkhorn_kernel: unsupported device {couplings.device}")
+    if couplings.dim() != 3:
+        raise ValueError(f"sinkhorn_kernel: couplings must be (B, M1, N1), got {tuple(couplings.shape)}")
+    B, M1, N1 = couplings.shape
+    if not supported(B, M1, N1):
+        raise ValueError(f"sinkhorn_kernel: a ({B}, {M1}, {N1}) coupling does not "
+                         "index in 32 bits")
+    if num_iters < 0:
+        raise ValueError(f"sinkhorn_kernel: num_iters must be >= 0, got {num_iters}")
+    for name, t, shape in (("couplings", couplings, (B, M1, N1)), ("log_mu", log_mu, (B, M1)),
+                           ("log_nu", log_nu, (B, N1))):
+        if t.dtype != torch.float32:
+            raise TypeError(f"sinkhorn_kernel: {name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"sinkhorn_kernel: {name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != couplings.device:
+            raise ValueError(f"sinkhorn_kernel: {name} on {t.device}, couplings on {couplings.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"sinkhorn_kernel: {name} must be contiguous")
+    lib = _lib()
+    dev = couplings.device
+    out = torch.empty_like(couplings)
+    u = torch.empty((B, M1), dtype=torch.float32, device=dev)
+    v = torch.empty((B, N1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.sinkhorn_launch(
+            couplings.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), B, M1, N1,
+            int(num_iters), u.data_ptr(), v.data_ptr(), out.data_ptr(), dev.index, stream)
+    if status != 0:
+        raise RuntimeError("sinkhorn launch failed: "
+                           + lib.sinkhorn_error_string(status).decode())
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
+
+
+def log_sinkhorn_fused(scores: torch.Tensor, alpha: torch.Tensor, mask0: torch.Tensor,
+                       mask1: torch.Tensor, num_iters: int) -> torch.Tensor:
+    """Optimal transport with dust bins (SuperGlue §3.2): the batched
+    (B, M, N) scores in, the (B, M+1, N+1) log-coupling shifted by -norm
+    out; masked slots couple only with the bins. The kernel on the card,
+    the plain loop on the CPU."""
+    couplings, log_mu, log_nu, norm = augment(scores, alpha, mask0, mask1)
+    Z = sinkhorn_kernel(couplings, log_mu, log_nu, num_iters)
+    return Z - norm[:, None, None]

@@ -11,10 +11,13 @@ stage's math runs as a batched tensor program on the reconstructor's
 device:
 
 - detection: one batched program over the whole image batch
-  (features.sift);
+  (features.sift, or features.superpoint on the learned path);
 - matching + epipolar gating: the CUDA top-2 kernel (matching.cuda_knn)
   on the card, the plain matcher on the CPU, fused with the batched
-  fundamental-RANSAC gate per chunk of pairs (matching.gated);
+  fundamental-RANSAC gate per chunk of pairs (matching.gated); on the
+  learned path SuperGlue per chunk of pairs (matching.superglue, whose
+  Sinkhorn is the CUDA kernel matching.cuda_sinkhorn on the card), then
+  the same gate in chunks of its own;
 - registration: batched P3P hypotheses (geometry.pnp);
 - triangulation + landmark validity: landmark-major observation tables
   swept in one batched program;
@@ -40,12 +43,12 @@ import torch
 
 from reconstructor_tpu_torch.ba import lm as ba_lm
 from reconstructor_tpu_torch.config import ReconstructorConfig
-from reconstructor_tpu_torch.features import sift
+from reconstructor_tpu_torch.features import sift, superpoint
 from reconstructor_tpu_torch.geometry import camera as cam
 from reconstructor_tpu_torch.geometry import epipolar, np_ops, pnp, se3, triangulation
 from reconstructor_tpu_torch.io import images as io_images
 from reconstructor_tpu_torch.io import ply
-from reconstructor_tpu_torch.matching import cuda_knn, gated, knn, pairs as pairing
+from reconstructor_tpu_torch.matching import cuda_knn, gated, knn, pairs as pairing, superglue
 from reconstructor_tpu_torch.pipeline.state import ReconstructionState, MAX_VIEWS_PER_LANDMARK
 from reconstructor_tpu_torch.utils import device as devices
 from reconstructor_tpu_torch.utils.timing import TimeLogger
@@ -85,18 +88,19 @@ class IncrementalReconstructor:
     """End-to-end incremental reconstruction (reconstruct() parity).
 
     ``device``: where every stage runs — ``cuda`` unless given (the tests
-    pass ``"cpu"``). Only the default path is built in this package:
-    detector ``sift``, matcher ``knn``, dense-Schur bundle adjustment.
+    pass ``"cpu"``). Built in this package: detectors ``sift`` and
+    ``superpoint``, matchers ``knn`` and ``superglue``, dense-Schur
+    bundle adjustment.
     """
 
     def __init__(self, config: Optional[ReconstructorConfig] = None,
                  verbose: bool = True, device=None):
         self.config = config or ReconstructorConfig()
         cfg = self.config
-        if cfg.detector != "sift" or cfg.matcher != "knn":
+        if cfg.detector not in ("sift", "superpoint") or cfg.matcher not in ("knn", "superglue"):
             raise NotImplementedError(
-                "reconstructor_tpu_torch runs detector='sift' with matcher='knn' "
-                f"(got {cfg.detector!r}, {cfg.matcher!r})")
+                "reconstructor_tpu_torch runs detector 'sift' or 'superpoint' with matcher "
+                f"'knn' or 'superglue' (got {cfg.detector!r}, {cfg.matcher!r})")
         if cfg.ba_solver != "dense_schur":
             raise NotImplementedError("reconstructor_tpu_torch runs ba_solver='dense_schur'")
         self.verbose = verbose
@@ -259,6 +263,43 @@ class IncrementalReconstructor:
             json.dump(report, f, indent=2)
 
     # ------------------------------------------------------------------
+    def _superpoint_params(self) -> superpoint.SuperPointNet:
+        """The detector's network on the reconstructor's device: an
+        ``.npz`` of the JAX package's layout, a magicleap state dict, or
+        (no weights configured) a seeded random init."""
+        if not hasattr(self, "_sp_net"):
+            path = self.config.superpoint_weights
+            if path and path.endswith(".npz"):
+                net = superpoint.params_from_npz(path)
+            elif path:
+                net = superpoint.params_from_torch_state_dict(
+                    torch.load(path, map_location="cpu"))
+            else:
+                self._log("superpoint: no weights configured, random init")
+                net = superpoint.init_params(torch.Generator().manual_seed(42))
+            self._sp_net = net.to(self.device)
+        return self._sp_net
+
+    def _superglue_params(self) -> superglue.SuperGlue:
+        """The matcher's network on the reconstructor's device:
+        ``"structured"`` (identity GNN + full Sinkhorn decode on the raw
+        descriptors), an ``.npz`` of the JAX package's layout, a magicleap
+        state dict, or (no weights configured) a seeded random init."""
+        if not hasattr(self, "_sg_net"):
+            path = self.config.superglue_weights
+            if path == "structured":
+                net = superglue.structured_identity_params()
+            elif path and path.endswith(".npz"):
+                net = superglue.params_from_npz(path)
+            elif path:
+                net = superglue.params_from_torch_state_dict(
+                    torch.load(path, map_location="cpu"))
+            else:
+                self._log("superglue: no weights configured, random init")
+                net = superglue.init_params(torch.Generator().manual_seed(43))
+            self._sg_net = net.to(self.device)
+        return self._sg_net
+
     def detect_features(self, img_folder: str) -> ReconstructionState:
         """Load a folder (PIL decode, reference resize) and detect."""
         imgs = io_images.load_folder(img_folder, self.config.img_max_size)
@@ -272,13 +313,21 @@ class IncrementalReconstructor:
         lets callers with in-memory images skip the file decode)."""
         cfg = self.config
         gray, shapes, rgb = io_images.pad_batch(imgs)
-        feats = sift.detect_and_describe(
-            self._t(gray), self._t(shapes),
-            max_keypoints=cfg.max_keypoints,
-            num_scales=cfg.sift_num_scales,
-            contrast_thresh=cfg.sift_contrast_thresh,
-            edge_thresh=cfg.sift_edge_thresh,
-            sigma0=cfg.sift_sigma0)
+        if cfg.detector == "superpoint":
+            feats = superpoint.detect_and_describe(
+                self._superpoint_params(), self._t(gray), self._t(shapes),
+                max_keypoints=cfg.max_keypoints,
+                conf_thresh=cfg.superpoint_conf_thresh,
+                nms_radius=cfg.superpoint_nms_radius,
+                border=cfg.superpoint_border)
+        else:
+            feats = sift.detect_and_describe(
+                self._t(gray), self._t(shapes),
+                max_keypoints=cfg.max_keypoints,
+                num_scales=cfg.sift_num_scales,
+                contrast_thresh=cfg.sift_contrast_thresh,
+                edge_thresh=cfg.sift_edge_thresh,
+                sigma0=cfg.sift_sigma0)
         xy = feats.xy.cpu().numpy()
         mask = feats.mask.cpu().numpy()
         # per-feature color pickup (SequentialReconstructor.cpp:99-106)
@@ -339,9 +388,20 @@ class IncrementalReconstructor:
         CUDA top-2 kernel with ``knn_compute_dtype`` descriptors; on the
         CPU it is ``match_chunk_pairs`` through the plain matcher in
         float32 (the TPU package's platform rule). A chunk holds only real
-        pairs: the last one is shorter, not padded."""
+        pairs: the last one is shorter, not padded. With
+        ``matcher="superglue"`` the pairs go through ``_match_superglue``
+        and then, with filter=True, the gate of ``_filter_matches``."""
         cfg = self.config
         pair_idx = self.select_pairs(state)
+        if cfg.matcher == "superglue":
+            midx, mmask = self._match_superglue(state, pair_idx)
+            if filter:
+                mmask = self._filter_matches(state, pair_idx, midx, mmask)
+            for p, (i, j) in enumerate(pair_idx):
+                m = np.where(mmask[p], midx[p], -1).astype(np.int32)
+                if (m >= 0).sum() > 0:
+                    state.matches[(int(i), int(j))] = m
+            return
         desc_d, mask_d, xy_d = self._device_frontend(state)
         Kt = int(desc_d.shape[1])
         on_card = self.device.type == "cuda"
@@ -378,6 +438,68 @@ class IncrementalReconstructor:
                     full = np.full(K, -1, np.int32)
                     full[:n] = mi[q, :n]
                     state.matches[(int(i), int(j))] = full
+
+    def _match_superglue(self, state: ReconstructionState, pair_idx: np.ndarray):
+        """SuperGlue over every pair (FeatureMatcherSuperglue parity:
+        +-0.7 coordinate normalisation, score > 0.5 gate), at the full
+        ``max_keypoints`` width, in chunks of ``superglue_chunk_pairs``
+        real pairs (the last one shorter). On the card the Sinkhorn step
+        is the CUDA kernel, on the CPU the plain loop (the TPU package's
+        rule ``platform not in ("cpu",)``). Returns (match_idx (P, K),
+        match_mask (P, K)) as numpy."""
+        cfg = self.config
+        net = self._superglue_params()
+        P = pair_idx.shape[0]
+        K = state.max_keypoints
+        desc, xy = self._t(state.desc), self._t(state.xy)
+        score, kmask = self._t(state.kp_score), self._t(state.kp_mask)
+        shapes = self._t(state.shapes)
+        B = cfg.superglue_chunk_pairs
+        results = []
+        for s0 in range(0, P, B):
+            e = min(s0 + B, P)
+            chunk = self._t(np.ascontiguousarray(pair_idx[s0:e], dtype=np.int32))
+            idx, ok, _ = superglue.match_pairs_batched(
+                net, desc, xy, score, kmask, shapes, chunk,
+                sinkhorn_iters=cfg.superglue_sinkhorn_iters,
+                score_thresh=cfg.superglue_score_thresh)
+            results.append((s0, e, idx, ok))
+        midx = np.full((P, K), -1, np.int32)
+        mmask = np.zeros((P, K), bool)
+        for s0, e, idx, ok in results:
+            midx[s0:e] = idx.cpu().numpy()
+            mmask[s0:e] = ok.cpu().numpy()
+        return midx, mmask
+
+    def _filter_matches(self, state: ReconstructionState, pair_idx: np.ndarray,
+                        midx: np.ndarray, mmask: np.ndarray) -> np.ndarray:
+        """Fundamental-RANSAC gate on every pair, in chunks of
+        ``filter_chunk_pairs`` real pairs, with draws from the
+        reconstructor's generator. A pair with fewer than
+        ``min_matches_for_filter`` raw matches keeps them all
+        (SequentialReconstructor.cpp:237). Returns the gated mask."""
+        cfg = self.config
+        P = pair_idx.shape[0]
+        K = state.max_keypoints
+        B = cfg.filter_chunk_pairs
+        out = mmask.copy()
+        raw_counts = mmask.sum(1)
+        p1_all = state.xy[pair_idx[:, 0]]                                 # (P, K, 2)
+        p2_all = state.xy[pair_idx[:, 1][:, None], np.clip(midx, 0, K - 1)]
+        results = []
+        for s in range(0, P, B):
+            e = min(s + B, P)
+            inl = gated.filter_pairs(
+                self._t(p1_all[s:e]), self._t(p2_all[s:e]), self._t(mmask[s:e]),
+                num_hypotheses=cfg.fundamental_num_hypotheses,
+                thresh_px=cfg.fundamental_thresh_px, generator=self._gen)
+            results.append((s, e, inl))
+        for s, e, inl in results:
+            inl = inl.cpu().numpy()
+            for bi, p in enumerate(range(s, e)):
+                if raw_counts[p] >= cfg.min_matches_for_filter:
+                    out[p] = inl[bi] & mmask[p]
+        return out
 
     # ------------------------------------------------------------------
     def choose_initial_pair(self, state: ReconstructionState) -> Tuple[int, int, np.ndarray]:

@@ -5,8 +5,10 @@ Each kernel source under ``<package>/**/csrc/*.cu`` exposes a plain
 (``sm_90a``) into a shared library and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds, not minutes. Libraries are
 named by a hash of their source and flags, so an edited source never
-loads a stale build, and are written atomically, so concurrent builders
-do not see half-written files.
+loads a stale build, and are written atomically, so builders that run at
+once (threads or processes) need no lock and never see a half-written
+file: ``load`` of two sources from two threads runs their ``nvcc``
+builds side by side.
 
 The build directory is ``build/kernels`` beside the package (listed in
 ``.gitignore``), or ``$RECONSTRUCTOR_TORCH_BUILD_DIR`` when set. Nothing
@@ -21,7 +23,6 @@ import hashlib
 import os
 import subprocess
 import tempfile
-import threading
 from pathlib import Path
 from typing import Dict
 
@@ -29,7 +30,6 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a",
          "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _PKG = Path(__file__).resolve().parents[1]
-_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -64,9 +64,7 @@ def _build(src: Path) -> Path:
 def load(rel: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of one kernel source, given
     relative to the package."""
-    with _LOCK:
-        lib = _LIBS.get(rel)
-        if lib is None:
-            lib = ctypes.CDLL(str(_build(_PKG / rel)))
-            _LIBS[rel] = lib
-        return lib
+    lib = _LIBS.get(rel)
+    if lib is None:
+        lib = _LIBS.setdefault(rel, ctypes.CDLL(str(_build(_PKG / rel))))
+    return lib

@@ -7,9 +7,10 @@ machine without an NVIDIA GPU. On one, run
 
 This file imports no JAX (the GPU machine has none; ``--noconftest``
 skips ``tests/conftest.py``, which configures JAX): it drives the same
-checks as ``chip_smoke.py``'s kernel phase — the top-2 kNN kernel against
-its plain PyTorch version on the TPU package's kernel-test cases and at
-the fountain dataset's shape.
+checks as ``chip_smoke.py``'s kernel phases — the top-2 kNN kernel against
+its plain PyTorch version on the TPU package's kernel-test cases, at the
+fountain dataset's shape and at SuperPoint's 256-wide descriptors, and
+the Sinkhorn kernel against its plain version on ragged random scores.
 """
 
 import os
@@ -37,3 +38,13 @@ def test_knn_kernel_edge_cases(card):
 @pytest.mark.cuda
 def test_knn_kernel_at_fountain_shape(card):
     chip_smoke.phase_kernels(card)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_superpoint_width(card):
+    chip_smoke.knn_superpoint_width(card)
+
+
+@pytest.mark.cuda
+def test_sinkhorn_kernel_against_plain(card):
+    chip_smoke.phase_sinkhorn(card)

@@ -71,9 +71,24 @@ def case_exact_ties():
     return desc, mask, np.array([[0, 1], [1, 0], [0, 0]], np.int32), 0.7
 
 
+def case_superpoint_width():
+    """SuperPoint's 256-wide descriptors (the learned detector with the
+    kNN matcher), which the kernel takes as two 128-wide slices."""
+    rng = np.random.default_rng(15)
+    base = unit(rng, (300, 256))
+    desc = np.zeros((3, 256, 256), np.float32)
+    mask = np.zeros((3, 256), bool)
+    for n, count in enumerate((256, 230, 180)):
+        d = base[rng.choice(300, count, replace=False)]
+        d = d + 0.1 * rng.standard_normal(d.shape).astype(np.float32)
+        desc[n, :count] = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        mask[n, :count] = True
+    return desc, mask, np.array([[0, 1], [0, 2], [1, 2]], np.int32), 0.8
+
+
 CASES = {"random_pairs": case_random_pairs, "fully_masked": case_fully_masked,
          "k384": case_k384, "lone_valid_column": case_lone_valid_column,
-         "exact_ties": case_exact_ties}
+         "exact_ties": case_exact_ties, "superpoint_width": case_superpoint_width}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -140,6 +155,7 @@ def test_wrapper_dispatches_by_device():
     with pytest.raises(ValueError):
         cuda_knn.knn_topk2(t(desc).to("meta"), t(bias).to("meta"), t(pairs).to("meta"))
     assert cuda_knn.supported(1280, 128) and not cuda_knn.supported(1000, 128)
+    assert cuda_knn.supported(1024, 256) and not cuda_knn.supported(1024, 192)
 
 
 def test_frontend_pads_keypoints_past_max_keypoints():
