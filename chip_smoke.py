@@ -7,8 +7,8 @@
 Phases, each printing one or more lines with its elapsed seconds:
 
 1. device   — the card's name and power limit (nvidia-smi).
-2. build    — nvcc builds both CUDA kernels from the sources in this
-              checkout, side by side (one nvcc process per source).
+2. build    — nvcc builds the four CUDA kernel sources in this checkout,
+              side by side (one nvcc process per source).
 3. knn      — the top-2 kNN kernel against its plain PyTorch version at
               the fountain dataset's shape (25 images x 4096 keypoints x
               128, all 300 pairs in one launch, as the path's chunk of up
@@ -28,9 +28,25 @@ Phases, each printing one or more lines with its elapsed seconds:
               100 iterations and K = 256, 8 pairs, 50 iterations: max error
               over valid entries and bins, masked entries, marginals,
               decoded matches; then kernel and plain times and the bound.
-6. render   — the 25-view 384x512 scene, rendered once from a seed for
-              both end-to-end phases.
-7. e2e      — the default path (SIFT, kNN + F-gate, PnP, BA) through
+6. packed   — the packed-int32 kNN kernel (``knn_topk2(packed=True)``)
+              against its plain version: the kNN edge cases (every output
+              equal; the lone valid column passes the ratio test through
+              the 1e30 sentinel), the fountain shape on exactly
+              representable descriptors (equal) and on random unit ones
+              (argmins agreeing on >= 99.9% of rows, distances within one
+              2^-17 step), then the port's ``scripts/check_packed.py``
+              (packed against the float kernel, the same rates) with the
+              launch counters set to 0 just before, then timing.
+7. levels   — the level-by-level kNN kernel of the port's
+              ``scripts/profile_knn_kernel.py`` against its plain version
+              at every level (index outputs equal on exactly representable
+              descriptors and on the script's own unnormalised inputs, f32
+              and bf16), level 3 equal to the kNN kernel with zero bias,
+              then the script's full sweep (counters set to 0 just before)
+              and the timing of level 3.
+8. render   — the 25-view 384x512 scene, rendered once from a seed for
+              the end-to-end and profile phases.
+9. e2e      — the default path (SIFT, kNN + F-gate, PnP, BA) through
               ``detect_features_from_images`` and ``reconstruct_from_state``
               on the card, with every kernel's launch counter set to 0 just
               before and read just after. It must register >= 23 of 25
@@ -38,7 +54,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               poses, and launch the kNN kernel. The kernel is then held
               against its plain version on the very inputs the path gave
               it, and timed there.
-8. learned  — the learned path (SuperPoint from
+10. learned — the learned path (SuperPoint from
               ``tests/data/superpoint_synth.npz``, the structured 18-layer
               256-wide SuperGlue at 1024 keypoints, 100 Sinkhorn
               iterations, F-gate, PnP, BA) through the same entry points,
@@ -49,6 +65,14 @@ Phases, each printing one or more lines with its elapsed seconds:
               ``tests/data/superglue_fountain.npz`` scores that chunk on
               the card and on the CPU, which must agree (the structured
               GNN's output does not depend on its attention layers).
+11. profile — the port's ``scripts/profile_incremental.py`` on the first
+              5 views of the rendered scene (the initial pair and three
+              views registered after it; one final refinement round instead
+              of six): wall seconds, device-busy share, launches and top
+              kernels per stage, from a torch.profiler trace. It fails if a
+              stage that launched CUDA work shows no device time, or if the
+              registered count differs from an unprofiled run of the same
+              views and seed.
 
 The last two lines of standard output are a JSON object describing each
 kernel and a JSON object ``{"ok": true, "device": {...}}``. Any failure
@@ -198,12 +222,10 @@ def compare_knn(desc, mask, chunk, exact: bool, tol: float,
     return res, km
 
 
-def edge_cases(dev):
-    """The cases of the TPU package's kernel tests, on the card: each must
-    equal the plain version exactly (index outputs and distances)."""
+def edge_case_inputs():
+    """The cases of the TPU package's kernel tests: (name, desc, mask,
+    pairs) as numpy."""
     import numpy as np
-    import torch
-    from reconstructor_tpu_torch.matching import cuda_knn
     rng = np.random.default_rng(12)
     cases = []
     # fully masked image 1
@@ -229,7 +251,15 @@ def edge_cases(dev):
     q = rng.integers(-4, 5, (64, 128)).astype(np.float32) / 32.0
     d = np.stack([np.concatenate([q, q]), np.concatenate([q[::-1], q])])
     cases.append(("exact ties", d, np.ones((2, 128), bool), [[0, 1], [1, 0], [0, 0]]))
-    for name, d, m, pairs in cases:
+    return cases
+
+
+def edge_cases(dev):
+    """The cases of the TPU package's kernel tests, on the card: each must
+    equal the plain version exactly (index outputs and distances)."""
+    import torch
+    from reconstructor_tpu_torch.matching import cuda_knn
+    for name, d, m, pairs in edge_case_inputs():
         for dtype in (torch.float32, torch.bfloat16):
             desc = torch.from_numpy(d).to(dev).to(dtype).contiguous()
             mask = torch.from_numpy(m).to(dev)
@@ -265,20 +295,24 @@ def knn_flops(mask, chunk, D: int) -> float:
     return 2.0 * D * float((n[ci[:, 0]] * n[ci[:, 1]]).sum().item())
 
 
-def knn_bytes(N: int, K: int, D: int, B: int, elt: int) -> float:
-    return N * K * D * elt + N * K * 4 + B * 8 + B * K * 16
+def knn_bytes(N: int, K: int, D: int, B: int, elt: int, bias_elt: int = 4) -> float:
+    return N * K * D * elt + N * K * bias_elt + B * 8 + B * K * 16
 
 
-def time_knn(desc, mask, chunk, label: str):
-    """Kernel, plain and library (matmul + topk) times on one input."""
+def time_knn(desc, mask, chunk, label: str, kernel=None, plain=None, bias_elt: int = 4):
+    """Kernel, plain and library (matmul + topk + column min) times on one
+    input, beside the bound. ``kernel`` / ``plain`` default to the top-2
+    kNN kernel and its plain version on the float bias of ``mask``."""
     import torch
     from reconstructor_tpu_torch.matching import cuda_knn
     bias = torch.where(mask, 0.0, 1e30).to(torch.float32).contiguous()
     desc = desc.contiguous()
     N, K, D = desc.shape
     B = chunk.shape[0]
-    ms = cuda_ms(lambda: cuda_knn.knn_topk2(desc, bias, chunk))
-    plain_ms = cuda_ms(lambda: cuda_knn.knn_topk2_plain(desc, bias, chunk), iters=3, warmup=1)
+    kernel = kernel or (lambda: cuda_knn.knn_topk2(desc, bias, chunk))
+    plain = plain or (lambda: cuda_knn.knn_topk2_plain(desc, bias, chunk))
+    ms = cuda_ms(kernel)
+    plain_ms = cuda_ms(plain, iters=3, warmup=1)
     ci = chunk.long()
 
     def library():
@@ -293,7 +327,7 @@ def time_knn(desc, mask, chunk, label: str):
     peak = BF16_PEAK if desc.dtype == torch.bfloat16 else F32_PEAK
     flops = knn_flops(mask, chunk, D)
     t_ops = flops / peak * 1e3
-    t_bytes = knn_bytes(N, K, D, B, elt) / HBM_BYTES_PER_S * 1e3
+    t_bytes = knn_bytes(N, K, D, B, elt, bias_elt) / HBM_BYTES_PER_S * 1e3
     bound = max(t_ops, t_bytes)
     res = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -480,22 +514,231 @@ def phase_sinkhorn(dev):
 
 
 # ----------------------------------------------------------------------
+# the packed kNN kernel and the level-by-level kernel
+# ----------------------------------------------------------------------
+
+STEP = 2.0 ** -17   # the packed kernels' distance step
+
+
+def packed_bias(mask):
+    import torch
+    from reconstructor_tpu_torch.matching import cuda_knn
+    return torch.where(mask, 0, cuda_knn._DMAX).to(torch.int32).contiguous()
+
+
+def compare_packed(desc, mask, chunk, exact: bool, label: str, min_agree: float = 0.999):
+    """Packed kernel vs its plain version on identical inputs. ``exact``:
+    every output equal. Otherwise float32 sums in another order can move a
+    distance across one 2^-17 step, so distances agree within one step and
+    the argmins on ``min_agree`` of valid rows and columns; which rows have
+    no valid column (the 1e30 sentinel) always agrees. Returns a dict."""
+    import torch
+    from reconstructor_tpu_torch.matching import cuda_knn
+    bias = packed_bias(mask)
+    kb, ks, ka, kc = cuda_knn.knn_topk2(desc.contiguous(), bias, chunk, packed=True)
+    torch.cuda.synchronize()
+    pb, ps, pa, pc = cuda_knn.knn_topk2_packed_plain(desc, bias, chunk)
+    rows_valid = mask[chunk[:, 0].long()]
+    cols_valid = mask[chunk[:, 1].long()]
+
+    def err(a, b):
+        fin = (a < 1e29) & (b < 1e29)
+        return (a - b).abs()[fin].max().item() if fin.any() else 0.0
+    res = {"max_abs_err": max(err(kb, pb), err(ks, ps)),
+           "arg_agree": (ka == pa)[rows_valid].double().mean().item(),
+           "colarg_agree": (kc == pc)[cols_valid].double().mean().item(),
+           "sentinel_agree": bool(torch.equal(kb >= 1e29, pb >= 1e29)
+                                  and torch.equal(ks >= 1e29, ps >= 1e29))}
+    log("packed", f"{label}: " + json.dumps(res))
+    if exact:
+        for name, a, b in (("best", kb, pb), ("second", ks, ps), ("arg", ka, pa),
+                           ("colarg", kc, pc)):
+            check(torch.equal(a, b), f"{label}: packed kernel {name} differs from the plain version")
+    else:
+        check(res["max_abs_err"] <= STEP + 1e-6,
+              f"{label}: packed distances off by {res['max_abs_err']} > 2^-17 + 1e-6")
+        check(res["arg_agree"] >= min_agree, f"{label}: arg agrees on {res['arg_agree']:.5f}")
+        check(res["colarg_agree"] >= min_agree,
+              f"{label}: colarg agrees on {res['colarg_agree']:.5f}")
+        check(res["sentinel_agree"], f"{label}: the 1e30 sentinel differs")
+    return res
+
+
+def packed_edge_cases(dev):
+    """The kNN edge cases through the packed kernel: every output equal to
+    the plain version's, in float32 and bfloat16 (the quantised distances
+    too: at these sizes the card's float32 product sums in the kernel's
+    order), and the lone valid column matches through the sentinel (second
+    best 1e30)."""
+    import torch
+    from reconstructor_tpu_torch.matching import cuda_knn
+    for name, d, m, pairs in edge_case_inputs():
+        for dtype in (torch.float32, torch.bfloat16):
+            desc = torch.from_numpy(d).to(dev).to(dtype).contiguous()
+            mask = torch.from_numpy(m).to(dev)
+            chunk = torch.tensor(pairs, dtype=torch.int32, device=dev)
+            bias = packed_bias(mask)
+            k_out = cuda_knn.knn_topk2(desc, bias, chunk, packed=True)
+            p_out = cuda_knn.knn_topk2_packed_plain(desc, bias, chunk)
+            torch.cuda.synchronize()
+            for a, b, what in zip(k_out, p_out, ("best", "second", "arg", "colarg")):
+                check(torch.equal(a, b), f"packed edge case {name} ({dtype}): {what} differs")
+            kb, ks, ka, kc = k_out
+            if name == "fully masked image":
+                check(bool((kb[0] >= 1e29).all()), "packed: a fully masked image has a best")
+            if name == "lone valid column":
+                check(bool(ks[0, 5] >= 1e29) and bool(kb[0, 5] < 0.49 * ks[0, 5])
+                      and int(ka[0, 5]) == 0 and int(kc[0, 0]) == 5,
+                      "packed: the lone valid column failed the ratio or mutual test")
+        log("packed", f"edge case '{name}': packed kernel == plain (f32 and bf16)")
+
+
+def phase_packed(dev, N: int = 25, K: int = 4096, D: int = 128):
+    """The packed kernel against its plain version, then the port's
+    check_packed (the main path of this kernel) with every counter at 0
+    just before; returns (launches, main-path result, timing)."""
+    import torch
+    from reconstructor_tpu_torch.matching import cuda_knn
+    from reconstructor_tpu_torch.scripts import check_packed
+    packed_edge_cases(dev)
+    chunk = all_pairs(N, dev)
+    desc_q, mask_q = knn_inputs(N, K, D, seed=1, quantized=True, dev=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        compare_packed(desc_q.to(dt), mask_q, chunk, exact=True,
+                       label=f"fountain shape {dt}, exactly representable descriptors")
+    desc, mask = knn_inputs(N, K, D, seed=2, quantized=False, dev=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        compare_packed(desc.to(dt), mask, chunk, exact=False,
+                       label=f"fountain shape {dt}, random unit descriptors")
+    desc16 = desc.to(torch.bfloat16).contiguous()
+    bias16 = packed_bias(mask)
+    time_knn(desc16, mask, chunk, "packed kernel, fountain shape",
+             kernel=lambda: cuda_knn.knn_topk2(desc16, bias16, chunk, packed=True),
+             plain=lambda: cuda_knn.knn_topk2_packed_plain(desc16, bias16, chunk))
+    del desc, mask, desc_q, mask_q, desc16
+    torch.cuda.empty_cache()
+
+    # the main path: check_packed, packed against the float kernel
+    cuda_knn.reset_launches()
+    out = check_packed.main([])
+    launches = cuda_knn.LAUNCHES_PACKED
+    log("packed", f"check_packed: {json.dumps(out)}, packed launches {launches}")
+    check(launches > 0, "check_packed never launched the packed kernel")
+    for dt in ("float32", "bfloat16"):
+        check(out[f"{dt}_arg_agree"] >= 0.999, f"check_packed {dt}: arg agreement {out}")
+        check(out[f"{dt}_colarg_agree"] >= 0.999, f"check_packed {dt}: colarg agreement {out}")
+        check(out[f"{dt}_best_maxerr"] <= STEP + 1e-6, f"check_packed {dt}: best error {out}")
+        check(out[f"{dt}_sentinel_agree"] == 1.0, f"check_packed {dt}: sentinel {out}")
+    # the kernel on check_packed's own inputs: vs its plain version, timed
+    d, m, p = check_packed.inputs()
+    desc = torch.from_numpy(d).to(dev)
+    mask = torch.from_numpy(m).to(dev)
+    chunk = torch.from_numpy(p).to(dev)
+    res = compare_packed(desc, mask, chunk, exact=False, label="check_packed inputs f32")
+    bias = packed_bias(mask)
+    timing = time_knn(desc, mask, chunk, "packed kernel, check_packed inputs",
+                      kernel=lambda: cuda_knn.knn_topk2(desc, bias, chunk, packed=True),
+                      plain=lambda: cuda_knn.knn_topk2_packed_plain(desc, bias, chunk))
+    cuda_knn.reset_launches()
+    return launches, res, timing
+
+
+def level_inputs(K: int, dev, exact: bool, N: int = 8, D: int = 128, B: int = 256,
+                 seed: int = 0):
+    """The level script's shapes. ``exact``: k/64 values with |k| <= 6, so
+    every dot product is exact in float32 and ties are common; otherwise
+    the script's own unnormalised standard normals and pairs."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if exact:
+        desc = rng.integers(-6, 7, (N, K, D)).astype(np.float32) / 64.0
+    else:
+        desc = rng.standard_normal((N, K, D)).astype(np.float32)
+    pairs = rng.integers(0, N, (B, 2)).astype(np.int32)
+    return torch.from_numpy(desc).to(dev), torch.from_numpy(pairs).to(dev)
+
+
+def compare_levels(desc, chunk, exact: bool, label: str) -> float:
+    """Kernel 4 vs run_plain at every level (index outputs equal; distances
+    equal when ``exact``, else within the float32 bound of two dot products
+    of length D summed in different orders, |d sim| <= D 2^-24 |a||b| each,
+    doubled by 2 - 2 sim, or one 2^-17 step for the packed level), and
+    level 3 equal to the kNN kernel with zero bias. Returns level 3's
+    largest distance error."""
+    import torch
+    from reconstructor_tpu_torch.matching import cuda_knn
+    from reconstructor_tpu_torch.scripts import profile_knn_kernel as pk
+    err3 = 0.0
+    D = desc.shape[2]
+    rounding = 4.0 * D * 2.0 ** -24 * desc.float().pow(2).sum(-1).max().item()
+    for level in pk.LEVELS:
+        kb, ks, ka, kc = pk.run(desc, chunk, level)
+        torch.cuda.synchronize()
+        pb, ps, pa, pc = pk.run_plain(desc, chunk, level)
+        check(torch.equal(ka, pa) and torch.equal(kc, pc),
+              f"{label} level {level}: index outputs differ from the plain version")
+        errs = [(a - b).abs().max().item() for a, b in ((kb, pb), (ks, ps))]
+        tol = 0.0 if exact else (STEP if level == "packed" else rounding)
+        check(max(errs) <= tol, f"{label} level {level}: distances off by {errs} > {tol}")
+        if level == 3:
+            err3 = max(errs)
+            zero = torch.zeros(desc.shape[:2], dtype=torch.float32, device=desc.device)
+            k1 = cuda_knn.knn_topk2(desc, zero, chunk)
+            for a, b in zip((kb, ks, ka, kc), k1):
+                check(torch.equal(a, b), f"{label}: level 3 differs from the kNN kernel")
+        # the script's unnormalised inputs clip most rows' best to 0
+        zeros = (pb == 0).double().mean().item()
+        log("levels", f"{label} level {level}: equal indices, distance error {max(errs):.3g} "
+                      f"(tol {tol:.3g}), best == 0 on {zeros:.4f} of rows")
+    return err3
+
+
+def phase_levels(dev, K: int = 4096):
+    """Kernel 4 against its plain version, then the port's
+    profile_knn_kernel sweep (its main path) with every counter at 0 just
+    before; returns (launches, result, timing of level 3)."""
+    import torch
+    from reconstructor_tpu_torch.matching import cuda_knn
+    from reconstructor_tpu_torch.scripts import profile_knn_kernel as pk
+    for exact in (True, False):
+        desc, chunk = level_inputs(K, dev, exact)
+        for dt in (torch.float32, torch.bfloat16):
+            kind = "exactly representable" if exact else "the script's unnormalised"
+            compare_levels(desc.to(dt).contiguous(), chunk, exact, f"K={K} {dt} {kind}")
+    del desc
+    torch.cuda.empty_cache()
+    pk.reset_launches()
+    cuda_knn.reset_launches()
+    out = pk.main([])
+    launches = pk.LAUNCHES
+    log("levels", f"profile_knn_kernel sweep: {json.dumps(out)}, launches {launches}")
+    check(launches > 0, "profile_knn_kernel never launched the level kernel")
+    # level 3 on the sweep's first input (the script's own seed), bf16
+    desc, chunk = level_inputs(K, dev, exact=False)
+    desc = desc.to(torch.bfloat16).contiguous()
+    err = compare_levels(desc, chunk, False, f"sweep input K={K} bf16")
+    mask = torch.ones(desc.shape[:2], dtype=torch.bool, device=dev)
+    timing = time_knn(desc, mask, chunk, "level kernel, level 3, sweep input",
+                      kernel=lambda: pk.run(desc, chunk, 3),
+                      plain=lambda: pk.run_plain(desc, chunk, 3), bias_elt=0)
+    pk.reset_launches()
+    cuda_knn.reset_launches()
+    return launches, {"max_abs_err": err}, timing
+
+
+# ----------------------------------------------------------------------
 # end to end
 # ----------------------------------------------------------------------
 
-def render_views(n_views: int = 25, h: int = 384, w: int = 512, tex_size: int = 1024,
-                 n_blobs: int = 1200):
-    """The fountain-sized scene, rendered once for both end-to-end phases."""
-    import numpy as np
-    from reconstructor_tpu_torch.eval import render
-    from reconstructor_tpu_torch.io import images as io_images
+def render_views():
+    """The fountain-sized scene, rendered once for the end-to-end and
+    profile phases."""
+    from reconstructor_tpu_torch.scripts import profile_incremental
     t = time.perf_counter()
-    scene = render.make_scene(seed=0, n_views=n_views, h=h, w=w, tex_size=tex_size,
-                              n_blobs=n_blobs, focal_px=1.2 * max(h, w))
-    imgs = [io_images.from_rgb(np.repeat((im * 255).astype(np.uint8)[..., None], 3, -1),
-                               path=f"view{i:02d}")
-            for i, im in enumerate(scene["images"])]
-    log("render", f"rendered {n_views} views {h}x{w} in {time.perf_counter() - t:.1f}s")
+    scene, imgs = profile_incremental.smoke_scene()
+    h, w = imgs[0].shape
+    log("render", f"rendered {len(imgs)} views {h}x{w} in {time.perf_counter() - t:.1f}s")
     return scene, imgs
 
 
@@ -639,6 +882,42 @@ def trained_gnn_on_card(dev, rec, state, pair_idx):
     return res
 
 
+def phase_profile(dev, tmp: str, imgs, rng_seed: int, n_views: int = 5):
+    """The port's stage profiler on the first ``n_views`` views of the
+    rendered scene (the initial pair and the views registered after it),
+    with one final refinement round instead of six, then the same views
+    unprofiled. Returns the report without its per-kernel lists."""
+    from reconstructor_tpu_torch.config import ReconstructorConfig
+    from reconstructor_tpu_torch.scripts import profile_incremental
+    cfg = ReconstructorConfig(rng_seed=rng_seed, final_refinement_rounds=1)
+    views = imgs[:n_views]
+    t = time.perf_counter()
+    rep = profile_incremental.profile(views, cfg, os.path.join(tmp, "profile"), device=dev)
+    log("profile", f"profiled run {time.perf_counter() - t:.1f}s")
+    for line in profile_incremental.format_report(rep).splitlines():
+        log("profile", line)
+    t = time.perf_counter()
+    plain = profile_incremental.unprofiled(views, cfg, device=dev)
+    log("profile", f"unprofiled run {time.perf_counter() - t:.1f}s: {json.dumps(plain)}")
+    check(rep["registered"] == plain["registered"],
+          f"profiled run registered {rep['registered']}, unprofiled {plain['registered']}")
+    check(rep["registered"] >= 4, f"profile: only {rep['registered']} views registered")
+    for name, st in rep["stages"].items():
+        if st["launches"] > 0:
+            check(st["busy_s"] is not None and st["busy_s"] > 0,
+                  f"profile: stage {name} launched {st['launches']} times but the trace "
+                  f"shows no device time")
+    check(rep["stages"]["choose_initial_pair"]["launches"] > 0,
+          "profile: the initial pair launched no CUDA work")
+    summary = {k: v for k, v in rep.items() if k not in ("stages", "top_kernels", "trace")}
+    summary["unprofiled"] = plain
+    summary["stages"] = {name: {k: st[k] for k in ("wall_s", "calls", "launches", "busy_s",
+                                                   "busy_share")}
+                         for name, st in rep["stages"].items()}
+    log("profile", json.dumps(summary))
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rng-seed", type=int, default=0,
@@ -658,6 +937,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, here)
     from reconstructor_tpu_torch.config import ReconstructorConfig
     from reconstructor_tpu_torch.matching import cuda_knn, cuda_sinkhorn
+    from reconstructor_tpu_torch.scripts import profile_knn_kernel
     from reconstructor_tpu_torch.utils import cuda_build
 
     dev = torch.device("cuda", 0)
@@ -671,8 +951,10 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         cuda_build.load(src)
         return src, time.perf_counter() - t
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for src, secs in pool.map(build, [cuda_knn.SOURCE, cuda_sinkhorn.SOURCE]):
+    sources = [cuda_knn.SOURCE, cuda_sinkhorn.SOURCE, cuda_knn.PACKED_SOURCE,
+               profile_knn_kernel.SOURCE]
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        for src, secs in pool.map(build, sources):
             log("build", f"{src}: {secs:.1f}s")
 
     desc, mask, chunk = phase_kernels(dev)
@@ -680,6 +962,9 @@ def main(argv=None) -> int:
     del desc, mask
     torch.cuda.empty_cache()
     phase_sinkhorn(dev)
+    packed = phase_packed(dev)
+    levels = phase_levels(dev)
+    torch.cuda.empty_cache()
 
     scene, imgs = render_views()
     sp_weights = os.path.join(here, "tests", "data", "superpoint_synth.npz")
@@ -706,6 +991,16 @@ def main(argv=None) -> int:
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": None})
         log("learned", json.dumps(summary))
+        for name, src, replaces, (launches, res, t) in (
+                ("knn_packed", cuda_knn.PACKED_SOURCE, cuda_knn.PACKED_REPLACES, packed),
+                ("knn_levels", profile_knn_kernel.SOURCE, profile_knn_kernel.REPLACES, levels)):
+            kernels.append({"name": name, "route": "cuda",
+                            "source": "reconstructor_tpu_torch/" + src,
+                            "replaces": replaces, "launches": launches,
+                            "max_abs_err": res["max_abs_err"], "ms": t["ms"],
+                            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        phase_profile(dev, tmp, imgs, args.rng_seed)
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

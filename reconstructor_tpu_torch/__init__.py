@@ -10,11 +10,16 @@ numpy, scipy and the standard library only: no JAX and nothing of
                   fundamental gate, epipolar pose, P3P/PnP.
 - ``features``  — the DoG/SIFT-style detector, batched.
 - ``matching``  — exact top-2 kNN: the plain version and the CUDA kernel
-                  (``matching/cuda_knn.py``, ``matching/csrc/knn_top2.cu``).
+                  (``matching/cuda_knn.py``, ``matching/csrc/knn_top2.cu``;
+                  the packed-int32 variant ``csrc/knn_packed.cu``).
 - ``ba``        — Levenberg-Marquardt bundle adjustment, dense Schur.
 - ``pipeline``  — the incremental reconstruction loop.
-- ``io``        — image reading/resizing, PLY export.
+- ``io``        — image reading/resizing (native libjpeg or PIL), PLY export.
 - ``eval``      — scene rendering and trajectory error.
+- ``utils``     — device choice, kernel builds, timing, torch.profiler hooks.
+- ``scripts``   — profiling entry points: the kNN kernel's cost split by
+                  level (``scripts/csrc/knn_levels.cu``), the packed kernel
+                  against the float one, the incremental loop by stage.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -10,13 +10,16 @@ landmarksToPclCloud(landmarks, inliers) (utils.cpp:222-252) is NOT
 replicated (it double-writes all points, an apparent bug); we write each
 landmark once, outliers painted red, which is the evident intent.
 
-The writer is plain numpy; the native C++ writer of ``reconstructor_tpu``
-is not used by this package.
+The native C++ writer (``native/libreconstructor_native.so`` through
+``io/native.py``) writes the file whenever its library loads, as in the
+TPU package; the numpy writer is the fallback.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from reconstructor_tpu_torch.io import native
 
 _PCL_HEADER = """ply
 format ascii 1.0
@@ -78,7 +81,6 @@ def save_cloud(path: str, points: np.ndarray, colors: np.ndarray,
         outl = ~np.asarray(inliers, bool)
         colors[outl] = (253, 0, 0)
 
-    rows = [points, colors]
     if poses is not None and len(poses):
         centers = camera_centers(np.asarray(poses, np.float32))
         cam_colors = np.tile(np.array([[0, 250, 0]], np.uint8), (centers.shape[0], 1))
@@ -87,6 +89,8 @@ def save_cloud(path: str, points: np.ndarray, colors: np.ndarray,
     else:
         pts_all, col_all = points, colors
 
+    if native.available() and native.write_ply(path, pts_all, col_all):
+        return
     n = pts_all.shape[0]
     with open(path, "w") as f:
         f.write(_PCL_HEADER.format(n=n))

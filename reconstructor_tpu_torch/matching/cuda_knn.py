@@ -18,6 +18,14 @@ plain PyTorch, which is also what the kernel is held against on the card.
 
 Masked slots ride a large-finite bias (1e30) instead of inf so no
 inf - inf NaNs can appear in the reductions.
+
+``knn_topk2(..., packed=True)`` is the TPU package's packed variant
+(``_knn_kernel_packed``, ``csrc/knn_packed.cu``, counted in
+``LAUNCHES_PACKED``): each distance is quantised to 2^-17 and packed with
+its slot in one int32 key, so one integer min gives value and argmin; its
+bias is int32 (0 valid / ``_DMAX`` masked) and K <= 4096. As in the TPU
+package, ``match_all_pairs_fused`` keeps it off: it is reached only from
+the profiling scripts (``scripts/check_packed.py``).
 """
 
 from __future__ import annotations
@@ -30,15 +38,27 @@ from reconstructor_tpu_torch.utils import cuda_build
 
 SOURCE = "matching/csrc/knn_top2.cu"
 REPLACES = "reconstructor_tpu/matching/pallas_knn.py:100"   # _knn_kernel
+PACKED_SOURCE = "matching/csrc/knn_packed.cu"
+PACKED_REPLACES = "reconstructor_tpu/matching/pallas_knn.py:52"   # _knn_kernel_packed
 _BIG = 1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# packed keys: distances in [0, 4] scaled by 2^17 into 19 bits, shifted
+# over a 12-bit slot; _DMAX marks a masked slot (real distances clip to
+# _DMAX - 1), so a best key >= _DMAX << 12 means "no valid column"
+_SCALE = 131072.0
+_DMAX = (1 << 19) - 1
+_INT_MAX = 2**31 - 1
+PACKED_MAX_K = 4096
+
 LAUNCHES = 0
+LAUNCHES_PACKED = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_PACKED
     LAUNCHES = 0
+    LAUNCHES_PACKED = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -50,6 +70,19 @@ def _lib() -> ctypes.CDLL:
         lib.knn_top2_launch.restype = ctypes.c_int
         lib.knn_top2_error_string.argtypes = [ctypes.c_int]
         lib.knn_top2_error_string.restype = ctypes.c_char_p
+        lib._knn_bound = True
+    return lib
+
+
+def _packed_lib() -> ctypes.CDLL:
+    lib = cuda_build.load(PACKED_SOURCE)
+    if not getattr(lib, "_knn_bound", False):
+        vp = ctypes.c_void_p
+        lib.knn_packed_launch.argtypes = [vp, ctypes.c_int, vp, vp, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, vp]
+        lib.knn_packed_launch.restype = ctypes.c_int
+        lib.knn_packed_error_string.argtypes = [ctypes.c_int]
+        lib.knn_packed_error_string.restype = ctypes.c_char_p
         lib._knn_bound = True
     return lib
 
@@ -87,52 +120,111 @@ def knn_topk2_plain(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tens
     return tuple(torch.cat(t) for t in zip(*outs))
 
 
-def knn_topk2(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor):
-    """Top-2 kNN outputs for every pair; see ``knn_topk2_plain``.
+def packed_keys_plain(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor,
+                      clip_hi: int, sentinel: bool, pairs_per_batch: int = 16):
+    """Packed-key top-2 in plain PyTorch: per pair, int32 distances
+    ``di = clip((2 - 2 sim) * 2^17, 0, clip_hi)`` raised to the int32 bias
+    of image j, row keys ``(di << 12) | col`` and column keys
+    ``(max(di, bias_i) << 12) | row``. A best or second key at or above
+    ``_DMAX << 12`` reads 1e30 when ``sentinel``. Shared by the packed
+    kernel's plain version and the profiling script's packed level."""
+    K = desc.shape[1]
+    cols = torch.arange(K, device=desc.device, dtype=torch.int32)
+    outs = []
+    for s in range(0, pair_idx.shape[0], pairs_per_batch):
+        pc = pair_idx[s:s + pairs_per_batch].long()
+        i, j = pc[:, 0], pc[:, 1]
+        sim = torch.matmul(desc[i].float(), desc[j].float().transpose(1, 2))
+        # 2 * sim and the scale are exact: one rounding, as in the kernels
+        di = torch.clamp((2.0 - 2.0 * sim) * _SCALE, 0.0, float(clip_hi)).to(torch.int32)
+        di = torch.maximum(di, bias[j][:, None, :])
+        keys = (di << 12) | cols
+        bestk = keys.amin(2)
+        secondk = torch.where(keys == bestk[:, :, None], _INT_MAX, keys).amin(2)
+        di_c = torch.maximum(di, bias[i][:, :, None])
+        colk = ((di_c << 12) | cols[:, None]).amin(1)
 
-    On a CUDA tensor this launches ``csrc/knn_top2.cu`` (or raises); the
-    plain version runs only for tensors on the CPU.
+        def value(k):
+            v = (k >> 12).to(torch.float32) * (1.0 / _SCALE)
+            return torch.where(k >= (_DMAX << 12), _BIG, v) if sentinel else v
+        outs.append((value(bestk), value(secondk), bestk & 4095, colk & 4095))
+    return tuple(torch.cat(t) for t in zip(*outs))
+
+
+def knn_topk2_packed_plain(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor):
+    """The packed kernel's function in plain PyTorch: ``_knn_kernel_packed``
+    of the TPU package. bias: (N, K) int32, 0 valid / ``_DMAX`` masked.
+    Returns (best, second, arg, colarg) as ``knn_topk2_plain`` does, with
+    distances on the 2^-17 grid and masked bests as 1e30."""
+    return packed_keys_plain(desc, bias, pair_idx, clip_hi=_DMAX - 1, sentinel=True)
+
+
+def knn_topk2(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor,
+              packed: bool = False):
+    """Top-2 kNN outputs for every pair; see ``knn_topk2_plain`` (or, with
+    ``packed``, ``knn_topk2_packed_plain``, whose bias is int32).
+
+    On a CUDA tensor this launches ``csrc/knn_top2.cu`` (``packed``:
+    ``csrc/knn_packed.cu``) or raises; the plain version runs only for
+    tensors on the CPU.
     """
-    if desc.device.type == "cpu":
-        return knn_topk2_plain(desc, bias, pair_idx)
-    if desc.device.type != "cuda":
-        raise ValueError(f"knn_topk2: unsupported device {desc.device}")
+    name = "knn_topk2(packed)" if packed else "knn_topk2"
     N, K, D = desc.shape
+    bias_dtype = torch.int32 if packed else torch.float32
+    if bias.dtype != bias_dtype or tuple(bias.shape) != (N, K):
+        raise ValueError(f"{name}: bias must be {bias_dtype} (N, K), "
+                         f"got {bias.dtype} {tuple(bias.shape)}")
+    if packed and K > PACKED_MAX_K:
+        raise ValueError(f"{name}: the 12-bit slot of a packed key holds K <= "
+                         f"{PACKED_MAX_K}, got K={K}")
+    if desc.device.type == "cpu":
+        return (knn_topk2_packed_plain if packed else knn_topk2_plain)(desc, bias, pair_idx)
+    if desc.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {desc.device}")
     B = pair_idx.shape[0]
     if desc.dtype not in _DTYPE_CODE:
-        raise TypeError(f"knn_topk2: descriptors must be float32 or bfloat16, got {desc.dtype}")
+        raise TypeError(f"{name}: descriptors must be float32 or bfloat16, got {desc.dtype}")
     if not supported(K, D):
-        raise ValueError(f"knn_topk2: need K % 128 == 0 and D a multiple of 128 up to 512, "
+        raise ValueError(f"{name}: need K % 128 == 0 and D a multiple of 128 up to 512, "
                          f"got K={K} D={D}")
-    if bias.dtype != torch.float32 or tuple(bias.shape) != (N, K):
-        raise ValueError(f"knn_topk2: bias must be float32 (N, K), got {bias.dtype} {tuple(bias.shape)}")
     if pair_idx.dtype != torch.int32 or pair_idx.dim() != 2 or pair_idx.shape[1] != 2:
-        raise ValueError("knn_topk2: pair_idx must be int32 (B, 2)")
+        raise ValueError(f"{name}: pair_idx must be int32 (B, 2)")
     if not 0 < B <= 65535:
-        raise ValueError(f"knn_topk2: 0 < B <= 65535 pairs per launch, got {B}")
-    for name, t in (("desc", desc), ("bias", bias), ("pair_idx", pair_idx)):
+        raise ValueError(f"{name}: 0 < B <= 65535 pairs per launch, got {B}")
+    for arg_name, t in (("desc", desc), ("bias", bias), ("pair_idx", pair_idx)):
         if t.device != desc.device:
-            raise ValueError(f"knn_topk2: {name} on {t.device}, descriptors on {desc.device}")
+            raise ValueError(f"{name}: {arg_name} on {t.device}, descriptors on {desc.device}")
         if not t.is_contiguous():
-            raise ValueError(f"knn_topk2: {name} must be contiguous")
-    lib = _lib()
+            raise ValueError(f"{name}: {arg_name} must be contiguous")
     dev = desc.device
     best = torch.empty((B, K), dtype=torch.float32, device=dev)
     second = torch.empty((B, K), dtype=torch.float32, device=dev)
     arg = torch.empty((B, K), dtype=torch.int32, device=dev)
     colarg = torch.empty((B, K), dtype=torch.int32, device=dev)
-    colbest = torch.empty((B, K), dtype=torch.int64, device=dev)   # 64-bit keys
+    global LAUNCHES, LAUNCHES_PACKED
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.knn_top2_launch(
-            desc.data_ptr(), _DTYPE_CODE[desc.dtype], bias.data_ptr(),
-            pair_idx.data_ptr(), B, K, D, best.data_ptr(), second.data_ptr(),
-            arg.data_ptr(), colarg.data_ptr(), colbest.data_ptr(), stream)
+        if packed:
+            lib = _packed_lib()
+            status = lib.knn_packed_launch(
+                desc.data_ptr(), _DTYPE_CODE[desc.dtype], bias.data_ptr(),
+                pair_idx.data_ptr(), B, K, D, best.data_ptr(), second.data_ptr(),
+                arg.data_ptr(), colarg.data_ptr(), stream)
+            error = lib.knn_packed_error_string
+        else:
+            lib = _lib()
+            colbest = torch.empty((B, K), dtype=torch.int64, device=dev)   # 64-bit keys
+            status = lib.knn_top2_launch(
+                desc.data_ptr(), _DTYPE_CODE[desc.dtype], bias.data_ptr(),
+                pair_idx.data_ptr(), B, K, D, best.data_ptr(), second.data_ptr(),
+                arg.data_ptr(), colarg.data_ptr(), colbest.data_ptr(), stream)
+            error = lib.knn_top2_error_string
     if status != 0:
-        raise RuntimeError("knn_top2 launch failed: "
-                           + lib.knn_top2_error_string(status).decode())
-    global LAUNCHES
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} launch failed: " + error(status).decode())
+    if packed:
+        LAUNCHES_PACKED += 1
+    else:
+        LAUNCHES += 1
     return best, second, arg, colarg
 
 
@@ -152,6 +244,8 @@ def match_all_pairs_fused(desc: torch.Tensor, mask: torch.Tensor,
     """
     if compute_dtype == "bfloat16":
         desc = desc.to(torch.bfloat16)
+    # the packed kernel stays off here, as at pallas_knn.py:247 (the TPU
+    # package measured it slower there); the profiling scripts reach it
     desc = desc.contiguous()
     pair_idx = pair_idx.to(device=desc.device, dtype=torch.int32).contiguous()
     bias = torch.where(mask, 0.0, _BIG).to(torch.float32).contiguous()

@@ -301,7 +301,8 @@ class IncrementalReconstructor:
         return self._sg_net
 
     def detect_features(self, img_folder: str) -> ReconstructionState:
-        """Load a folder (PIL decode, reference resize) and detect."""
+        """Load a folder (native libjpeg or PIL decode, reference resize) and
+        detect."""
         imgs = io_images.load_folder(img_folder, self.config.img_max_size)
         if len(imgs) < 2:
             raise ValueError(f"need at least 2 images, found {len(imgs)} in {img_folder}")

@@ -9,8 +9,12 @@ This file imports no JAX (the GPU machine has none; ``--noconftest``
 skips ``tests/conftest.py``, which configures JAX): it drives the same
 checks as ``chip_smoke.py``'s kernel phases — the top-2 kNN kernel against
 its plain PyTorch version on the TPU package's kernel-test cases, at the
-fountain dataset's shape and at SuperPoint's 256-wide descriptors, and
-the Sinkhorn kernel against its plain version on ragged random scores.
+fountain dataset's shape and at SuperPoint's 256-wide descriptors, the
+Sinkhorn kernel against its plain version on ragged random scores, the
+packed-int32 kNN kernel against its plain version and through the port's
+``scripts/check_packed.py``, and the level-by-level kNN kernel of
+``scripts/profile_knn_kernel.py`` against its plain version at every
+level.
 """
 
 import os
@@ -48,3 +52,20 @@ def test_knn_kernel_superpoint_width(card):
 @pytest.mark.cuda
 def test_sinkhorn_kernel_against_plain(card):
     chip_smoke.phase_sinkhorn(card)
+
+
+@pytest.mark.cuda
+def test_packed_knn_kernel_edge_cases(card):
+    chip_smoke.packed_edge_cases(card)
+
+
+@pytest.mark.cuda
+def test_packed_knn_kernel_and_check_packed(card):
+    launches, res, _ = chip_smoke.phase_packed(card)
+    assert launches > 0
+
+
+@pytest.mark.cuda
+def test_level_knn_kernel_at_every_level(card):
+    launches, res, _ = chip_smoke.phase_levels(card)
+    assert launches > 0

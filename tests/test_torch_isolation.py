@@ -14,6 +14,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
@@ -79,6 +81,43 @@ print(json.dumps({"registered": len(state.registered), "landmarks": int(state.nu
                   "leaked": leaked,
                   "ate": synth.pose_ate(state.poses, sc["poses"])["ate_rmse_normalized"]}))
 """
+
+
+NATIVE_DECODE = r"""
+import sys
+for name in ("jax", "jaxlib", "reconstructor_tpu", "PIL"):
+    sys.modules[name] = None
+import json
+from reconstructor_tpu_torch.io import images as io_images, native
+imgs = io_images.load_folder(sys.argv[1], 512)
+leaked = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "reconstructor_tpu", "PIL")
+                and sys.modules[k] is not None)
+print(json.dumps({"native": native.available(), "shapes": [list(i.shape) for i in imgs],
+                  "downscale": [i.downscale for i in imgs], "leaked": leaked}))
+"""
+
+
+def test_native_folder_decode_without_jax_pil_or_the_jax_package(tmp_path):
+    """A JPEG folder decodes through the native loader in an interpreter
+    with jax, the JAX package and PIL blocked (the card machine has none of
+    them); skipped where the native library does not load."""
+    from reconstructor_tpu_torch.io import native
+    if not native.available():
+        pytest.skip("native/libreconstructor_native.so does not load here")
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(3)
+    for i in range(2):
+        im = rng.integers(0, 256, (300, 400, 3)).astype(np.uint8)
+        Image.fromarray(im).save(str(tmp_path / f"{i}.jpg"), quality=85)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", NATIVE_DECODE, str(tmp_path)], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"native": True, "shapes": [[300, 400], [300, 400]],
+                   "downscale": [1.0, 1.0], "leaked": []}
 
 
 def test_learned_path_runs_without_jax_pil_or_the_jax_package():
