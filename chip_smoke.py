@@ -8,7 +8,11 @@ Phases, each printing one or more lines with its elapsed seconds:
 
 1. device   — the card's name and power limit (nvidia-smi).
 2. build    — nvcc builds the four CUDA kernel sources in this checkout,
-              side by side (one nvcc process per source).
+              side by side (one nvcc process per source), and prints the
+              redesigned kernels' registers, static shared memory and
+              spills (``-Xptxas -v``), the bf16 kNN kernel's launch
+              (pipeline stages, shared memory) and the Sinkhorn kernel's
+              cluster plan at the learned path's chunk.
 3. knn      — the top-2 kNN kernel against its plain PyTorch version at
               the fountain dataset's shape (25 images x 4096 keypoints x
               128, all 300 pairs in one launch, as the path's chunk of up
@@ -19,7 +23,14 @@ Phases, each printing one or more lines with its elapsed seconds:
               package's kernel tests (fully masked image, K = 384, a lone
               valid column, exact ties), and SuperPoint's 256-wide
               descriptors (25 x 1024 x 256, exactly representable, every
-              output equal in float32 and bfloat16; then timed in bf16).
+              output equal in float32 and bfloat16; then timed in bf16);
+              masks with holes, so that the bf16 kernel's column extents
+              are not valid counts (25 x 1280: exact inputs equal, random
+              ones at the rates above); the default path's launch shape
+              (25 x 1280, SIFT-like valid prefixes of 445-1082) against
+              the plain version and timed beside its bound and the
+              library call; D = 384 and 512, exactly representable, every
+              output equal.
 4. timing   — kNN kernel, plain version and a torch.matmul + topk
               yardstick at the fountain shape, beside the card's bound.
 5. sinkhorn — the Sinkhorn kernel against its plain PyTorch version on
@@ -27,7 +38,13 @@ Phases, each printing one or more lines with its elapsed seconds:
               masked, one with a single valid slot), at K = 1024, 8 pairs,
               100 iterations and K = 256, 8 pairs, 50 iterations: max error
               over valid entries and bins, masked entries, marginals,
-              decoded matches; then kernel and plain times and the bound.
+              decoded matches; then kernel and plain times and the bound;
+              the launch plan (cluster size); the same checks with holes
+              in the masks, and after 1 and 2 iterations (the masked rows'
+              and columns' closed forms before convergence); 0 iterations
+              return the coupling itself; M != N both ways round with an
+              image of no valid slot; K = 2048 and 4096 (more columns than
+              a block has threads, rows read from device memory).
 6. packed   — the packed-int32 kNN kernel (``knn_topk2(packed=True)``)
               against its plain version: the kNN edge cases (every output
               equal; the lone valid column passes the ratio test through
@@ -116,6 +133,30 @@ def nvidia_smi(query: str = "name,power.limit") -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(text: str):
+    """Registers, static shared memory and spills of each kernel from
+    nvcc's ``-Xptxas -v`` report."""
+    import re
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
     import torch
     for _ in range(warmup):
@@ -135,12 +176,16 @@ def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
 # kNN inputs and comparisons
 # ----------------------------------------------------------------------
 
-def knn_inputs(N: int, K: int, D: int, seed: int, quantized: bool, dev):
+def knn_inputs(N: int, K: int, D: int, seed: int, quantized: bool, dev,
+               counts=None, holes: bool = False):
     """Descriptors with match structure: every image sees a random subset
     of shared scene points (plus noise) followed by masked padding, as
     SIFT's valid-first slots are. ``quantized`` draws every value as
     k/64 with |k| <= 9, so every dot product is exact in float32 and any
-    summation order gives the same bits (and exact ties happen)."""
+    summation order gives the same bits (and exact ties happen).
+    ``counts``: the (lo, hi) range of valid slots per image (default
+    K/3..K); ``holes``: masks a random tenth of each image's valid slots
+    too, so the masks are not prefixes."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -151,8 +196,9 @@ def knn_inputs(N: int, K: int, D: int, seed: int, quantized: bool, dev):
         base = rng.standard_normal((n_pts, D))
     desc = np.zeros((N, K, D), np.float32)
     mask = np.zeros((N, K), bool)
+    lo, hi = counts or (K // 3, K)
     for n in range(N):
-        count = int(rng.integers(K // 3, K + 1))
+        count = int(rng.integers(lo, hi + 1))
         ids = rng.choice(n_pts, count, replace=False)
         if quantized:
             d = base[ids] + rng.integers(-3, 4, (count, D))
@@ -162,6 +208,8 @@ def knn_inputs(N: int, K: int, D: int, seed: int, quantized: bool, dev):
             desc[n, :count] = d / np.linalg.norm(d, axis=1, keepdims=True)
         mask[n, :count] = True
     mask[min(3, N - 1)] = False          # one image with no keypoints
+    if holes:
+        mask &= np.random.default_rng(seed + 1000).uniform(size=mask.shape) >= 0.1
     desc *= mask[..., None]
     return (torch.from_numpy(desc).to(dev), torch.from_numpy(mask).to(dev))
 
@@ -364,8 +412,54 @@ def phase_kernels(dev, N: int = 25, K: int = 4096, D: int = 128):
     check(agree >= 0.97, f"bf16 and f32 matches agree on only {agree:.4f}")
     edge_cases(dev)
     knn_superpoint_width(dev)
+    knn_non_prefix_masks(dev)
+    knn_default_shape(dev)
+    knn_wide_descriptors(dev)
     cuda_knn.reset_launches()
     return desc, mask, chunk
+
+
+def knn_wide_descriptors(dev, N: int = 6, K: int = 512):
+    """The widest descriptors the kernel takes (D = 384 and 512: three and
+    two pipeline stages of the bf16 kernel): exactly representable values,
+    so every output equals the plain version's, in float32 and bfloat16."""
+    import torch
+    chunk = all_pairs(N, dev)
+    for D in (384, 512):
+        desc, mask = knn_inputs(N, K, D, seed=D, quantized=True, dev=dev, holes=True)
+        for dt in (torch.float32, torch.bfloat16):
+            compare_knn(desc.to(dt), mask, chunk, exact=True, tol=0.0, min_match_agree=1.0,
+                        label=f"N={N} K={K} D={D} {dt}, exactly representable")
+
+
+def knn_non_prefix_masks(dev, N: int = 25, K: int = 1280, D: int = 128):
+    """Masks with holes (a tenth of each image's valid slots masked), so
+    the bf16 kernel's column extents are not valid counts: exactly
+    representable descriptors give every output equal in float32 and
+    bfloat16, random unit ones agree at the rates of the fountain shape."""
+    import torch
+    chunk = all_pairs(N, dev)
+    desc, mask = knn_inputs(N, K, D, seed=5, quantized=True, dev=dev, holes=True)
+    for dt in (torch.float32, torch.bfloat16):
+        compare_knn(desc.to(dt), mask, chunk, exact=True, tol=0.0, min_match_agree=1.0,
+                    label=f"non-prefix masks N={N} K={K} {dt}, exactly representable")
+    desc, mask = knn_inputs(N, K, D, seed=6, quantized=False, dev=dev, holes=True)
+    compare_knn(desc.to(torch.bfloat16), mask, chunk, exact=False, tol=1e-5,
+                min_match_agree=0.999, label=f"non-prefix masks N={N} K={K} bf16, random unit")
+
+
+def knn_default_shape(dev, N: int = 25, K: int = 1280, D: int = 128):
+    """The default path's launch: 25 views at Kt = 1280 with ragged valid
+    prefixes of 445-1082 keypoints, as SIFT gives on the rendered scene;
+    bf16 against the plain version, then timed beside the bound and the
+    library call."""
+    import torch
+    chunk = all_pairs(N, dev)
+    desc, mask = knn_inputs(N, K, D, seed=7, quantized=False, dev=dev, counts=(445, 1082))
+    desc = desc.to(torch.bfloat16)
+    compare_knn(desc, mask, chunk, exact=False, tol=1e-5, min_match_agree=0.999,
+                label=f"default-path shape N={N} K={K} bf16, SIFT-like prefixes")
+    return time_knn(desc, mask, chunk, "default-path shape, SIFT-like prefixes")
 
 
 def knn_superpoint_width(dev, N: int = 25, K: int = 1024, D: int = 256):
@@ -391,12 +485,14 @@ def phase_timing(desc, mask, chunk):
 # Sinkhorn inputs and comparisons
 # ----------------------------------------------------------------------
 
-def sinkhorn_inputs(B: int, K: int, seed: int, plant: float, dev):
+def sinkhorn_inputs(B: int, K: int, seed: int, plant: float, dev, holes: bool = False):
     """Seeded (B, K, K) scores: unit normal noise plus ``plant`` on a random
     permutation for half the rows (so the decode finds matches), ragged
     valid prefixes, pair 1's image 0 fully masked and pair 2's image 1
-    with a single valid slot. At these scales the plain loop's marginals
-    converge to ~1e-6 in the stated iterations."""
+    with a single valid slot (for B > 2). At these scales the plain loop's
+    marginals converge to ~1e-6 in the stated iterations. ``holes``: a
+    random tenth of the valid slots masked too, so the masks are not
+    prefixes."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -410,9 +506,14 @@ def sinkhorn_inputs(B: int, K: int, seed: int, plant: float, dev):
         perm = rng.permutation(K)
         rows = rng.choice(K, K // 2, replace=False)
         scores[b, rows, perm[rows]] += plant
-    m0[1] = False
-    m1[2] = False
-    m1[2, 0] = True
+    if holes:
+        hole = np.random.default_rng(seed + 1000)
+        m0 &= hole.uniform(size=m0.shape) >= 0.1
+        m1 &= hole.uniform(size=m1.shape) >= 0.1
+    if B > 2:
+        m0[1] = False
+        m1[2] = False
+        m1[2, 0] = True
     return (torch.from_numpy(scores).to(dev), torch.from_numpy(m0).to(dev),
             torch.from_numpy(m1).to(dev))
 
@@ -501,6 +602,25 @@ def time_sinkhorn(scores, alpha, m0, m1, iters: int, label: str):
     return res
 
 
+def sinkhorn_rectangular(dev, alpha, iters: int = 40):
+    """Images with different keypoint capacities (M != N, either way
+    round), non-prefix masks, one pair whose image 1 has no valid slot
+    and one whose image 0 has none: the kernel against its plain version
+    (marginals as close as the plain loop's own)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(7)
+    for B, M, N in ((4, 384, 256), (4, 200, 520)):
+        scores = (2 * rng.standard_normal((B, M, N))).astype(np.float32)
+        m0 = rng.uniform(size=(B, M)) < 0.7
+        m1 = rng.uniform(size=(B, N)) < 0.7
+        m1[1] = False
+        m0[2] = False
+        compare_sinkhorn(torch.from_numpy(scores).to(dev), alpha, torch.from_numpy(m0).to(dev),
+                         torch.from_numpy(m1).to(dev), iters,
+                         f"rectangular M={M} N={N} B={B} iters={iters}", marginal_tol=None)
+
+
 def phase_sinkhorn(dev):
     import torch
     from reconstructor_tpu_torch.matching import cuda_sinkhorn
@@ -509,7 +629,30 @@ def phase_sinkhorn(dev):
         scores, m0, m1 = sinkhorn_inputs(B, K, seed=K, plant=plant, dev=dev)
         label = f"random K={K} B={B} iters={iters}"
         compare_sinkhorn(scores, alpha, m0, m1, iters, label)
+        log("sinkhorn", f"launch plan B={B} M1=N1={K + 1}: "
+                        + json.dumps(cuda_sinkhorn.plan(B, K + 1, K + 1, dev)))
         time_sinkhorn(scores, alpha, m0, m1, iters, label)
+        scores, m0, m1 = sinkhorn_inputs(B, K, seed=K + 1, plant=plant, dev=dev, holes=True)
+        compare_sinkhorn(scores, alpha, m0, m1, iters, f"non-prefix masks K={K} B={B} "
+                                                       f"iters={iters}")
+    # 1 and 2 iterations: the closed forms of the masked rows and columns
+    # before the loop has converged (marginals as close as the plain
+    # loop's own); 0 iterations return the coupling itself
+    for iters in (1, 2):
+        compare_sinkhorn(scores, alpha, m0, m1, iters, f"non-prefix masks K={K} B={B} "
+                                                       f"iters={iters}", marginal_tol=None)
+    C, mu, nu, _ = cuda_sinkhorn.augment(scores, alpha, m0, m1)
+    check(torch.equal(cuda_sinkhorn.sinkhorn_kernel(C, mu, nu, 0), C),
+          "sinkhorn with 0 iterations is not the coupling itself")
+    sinkhorn_rectangular(dev, alpha)
+    # more columns than a block has threads, and more rows than a cluster's
+    # shared memory holds (read from device memory)
+    for B, K, iters in ((2, 2048, 30), (1, 4096, 10)):
+        scores, m0, m1 = sinkhorn_inputs(B, K, seed=K, plant=10.0, dev=dev, holes=True)
+        compare_sinkhorn(scores, alpha, m0, m1, iters, f"non-prefix masks K={K} B={B} "
+                                                       f"iters={iters}", marginal_tol=None)
+        log("sinkhorn", f"launch plan B={B} M1=N1={K + 1}: "
+                        + json.dumps(cuda_sinkhorn.plan(B, K + 1, K + 1, dev)))
     cuda_sinkhorn.reset_launches()
 
 
@@ -956,6 +1099,13 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         for src, secs in pool.map(build, sources):
             log("build", f"{src}: {secs:.1f}s")
+    for src in (cuda_knn.SOURCE, cuda_sinkhorn.SOURCE):
+        for k in ptxas_summary(cuda_build.build_log(src)):
+            log("build", f"{src} ptxas: " + json.dumps(k))
+    log("build", "knn_top2 bf16 launch (D=128 / 256): "
+                 + json.dumps([cuda_knn.wgmma_plan(d, dev) for d in (128, 256)]))
+    log("build", "sinkhorn launch at the learned path's chunk (B=8, M1=N1=1025): "
+                 + json.dumps(cuda_sinkhorn.plan(8, 1025, 1025, dev)))
 
     desc, mask, chunk = phase_kernels(dev)
     phase_timing(desc, mask, chunk)

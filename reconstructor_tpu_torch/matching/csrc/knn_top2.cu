@@ -11,21 +11,50 @@
 //       dist + bias_i, lowest row index on ties; 0 where that minimum is
 //       not below 1e30 (the TPU kernel's accumulator never updates there).
 //
-// What bounds it on an H100: operations. A pair is 2 * K^2 * 128 flops
-// against ~K * 128 * 2 descriptor bytes in, so at K = 4096 the work is
-// ~4,000 flops per byte, far above the card's ~20 (f32 SIMT) to ~295
-// (bf16 tensor core) flops-per-byte ridge. The design keeps the (K, K)
-// distance matrix out of device memory entirely, as the TPU kernel keeps
-// it in VMEM: a block owns 64 rows of image i (all D channels in shared
-// memory), streams image j through shared memory 64 columns by 128
-// channels at a time, accumulating each 64x64 tile's dot products over
-// the D / 128 channel slices, and reduces the tile in registers. D is any
-// multiple of 128 up to 512 (SIFT 128, SuperPoint 256), as the TPU
-// kernel takes any multiple of 128. Products run as float32 FMAs on the SIMT units
-// (bf16 inputs widen exactly to float32, so the bf16 path is the same
-// bf16-in, f32-accumulate arithmetic as the TPU's MXU pass); tensor-core
-// (wgmma) products are the next step for speed, not needed for
-// correctness.
+// What bounds it on an H100: operations. A pair is 2 * K^2 * D flops
+// against ~K * D * 2 descriptor bytes in, so at K = 4096 the work is
+// ~4,000 flops per byte, far above the card's ~295 (bf16 tensor core)
+// flops-per-byte ridge. The (K, K) distance matrix never reaches device
+// memory, as the TPU kernel kept it in VMEM.
+//
+// bf16 input (the path's default), the design that answers that bound:
+// - one block of two warpgroups per (pair, 128 rows of image i); the
+//   band's bf16 descriptors stay in shared memory, all D channels, in the
+//   128-byte-swizzled K-major layout that wgmma descriptors read;
+// - image j streams through a ring of 2-4 shared-memory stages of 128
+//   columns x 128 channels, filled by cp.async so the next stage's copy
+//   overlaps the current product (two blocks share an SM at D = 128);
+// - the product is wgmma.mma_async m64n128k16 (bf16 in, float32
+//   accumulators in registers, D / 16 k-steps a column tile); bf16
+//   products are exact in float32, only the order of the sums differs
+//   from a SIMT loop;
+// - the epilogue reads the accumulators in wgmma's layout (each row's
+//   128 columns over a quad of lanes, 32 each, in increasing order) and
+//   keeps the running row best / second / arg (in two independent chains,
+//   even and odd columns, where one block has an SM's registers: D >=
+//   256); the quad merges them at the end, lowest column on ties. A column's 16 rows of a warp lie on 8
+//   lanes; their 64-bit column keys are reduced by a reduce-scatter over
+//   those lanes (7 shuffles for 8 columns, not 24), then across the
+//   block's 8 warps in shared memory;
+// - column tiles wholly past image j's extent (last valid slot + 1, from
+//   the wrapper) are not computed: each such column would give exactly
+//   fl(d + 1e30) = 1e30, so the skipped region gives a row one candidate
+//   (1e30, first skipped column), and a second 1e30 when it spans more
+//   than one column; it adds nothing to colarg. Row bands are never
+//   skipped: the row outputs of masked rows of image i are defined. A
+//   masked row's column keys are >= 1e30, which colarg never reports, so
+//   a warp whose 16 rows are all masked builds no column keys.
+// What bounds this design: with the product on the tensor cores, the
+// epilogue is the kernel. Per 128 x 128 tile a thread runs ~1,000
+// instructions (distance, row top-2, column keys and their reduction),
+// so 8 warps issue ~8,000 warp-instructions against ~1,100 clocks of
+// tensor-core work for the tile; the row top-2 and the 64-bit column
+// keys are most of it. Making it faster means fewer epilogue
+// instructions per distance (or a cheaper column argmin), not a faster
+// product.
+// float32 input keeps the SIMT product (64 x 64 tiles, float32 FMAs):
+// TF32 tensor cores would keep about three decimal digits and change
+// results.
 //
 // The TPU carried the column argmin across row tiles in a revisited
 // output block, which is race-free only because a TPU grid runs in order.
@@ -43,6 +72,10 @@
 
 namespace {
 
+// ---------------------------------------------------------------------
+// float32: SIMT product
+// ---------------------------------------------------------------------
+
 constexpr int kD = 128;       // descriptor channels per slice of image j
 constexpr int kMaxD = 512;    // widest descriptor (shared memory: (D + 128) x 68 floats)
 constexpr int kTR = 64;       // rows of image i per block
@@ -51,25 +84,20 @@ constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kLds = kTR + 4; // shared row stride in floats (float4 aligned)
 constexpr float kBig = 1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // channels [d0, d0 + width) of 64 consecutive descriptors (row-major, D
 // values each) -> dst[d - d0][r]
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int D, int d0,
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, int D, int d0,
                                           int width, float* __restrict__ dst, int tid) {
 #pragma unroll 4
   for (int e = tid; e < kTR * width; e += kThreads) {
     const int r = e / width;
     const int d = e - r * width;
-    dst[d * kLds + r] = to_f32(src[(size_t)r * D + d0 + d]);
+    dst[d * kLds + r] = src[(size_t)r * D + d0 + d];
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-knn_top2_kernel(const T* __restrict__ desc, const float* __restrict__ bias,
+knn_top2_kernel(const float* __restrict__ desc, const float* __restrict__ bias,
                 const int* __restrict__ pairs, int K, int D,
                 float* __restrict__ best_out, float* __restrict__ second_out,
                 int* __restrict__ arg_out,
@@ -88,8 +116,8 @@ knn_top2_kernel(const T* __restrict__ desc, const float* __restrict__ bias,
   const int row0 = blockIdx.x * kTR;
   const int img_i = pairs[2 * p];
   const int img_j = pairs[2 * p + 1];
-  const T* di = desc + ((size_t)img_i * K + row0) * D;
-  const T* dj = desc + (size_t)img_j * K * D;
+  const float* di = desc + ((size_t)img_i * K + row0) * D;
+  const float* dj = desc + (size_t)img_j * K * D;
   const float* bi = bias + (size_t)img_i * K;
   const float* bj = bias + (size_t)img_j * K;
 
@@ -211,21 +239,398 @@ __global__ void knn_colarg_kernel(const unsigned long long* __restrict__ colbest
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* desc, const float* bias, const int* pairs, int B,
-                   int K, int D, float* best, float* second, int* arg, int* colarg,
-                   unsigned long long* colbest, cudaStream_t stream) {
-  const size_t smem = (size_t)(D + kD) * kLds * sizeof(float);
-  // above 48 KB of dynamic shared memory a kernel must opt in (cheap;
-  // set on every launch so it holds for whichever device is current)
+
+// ---------------------------------------------------------------------
+// bf16: wgmma product
+// ---------------------------------------------------------------------
+constexpr int kBand = 128;         // rows of image i per block (two warpgroups)
+constexpr int kTN = 128;           // columns of image j per tile
+constexpr int kSlice = 128;        // channels per pipeline stage
+constexpr int kWgThreads = 256;
+constexpr int kSubBytes = 128 * 128;           // 128 rows x 64 channels of bf16
+constexpr int kStageBytes = 2 * kSubBytes;     // 128 columns x 128 channels
+constexpr int kColpartBytes = 8 * kTN * 8;     // 8 warps x 128 columns of 64-bit keys
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared memory written by this thread (cp.async, stores) visible to wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a K-major operand in the 128-byte swizzle: rows of 64 channels (128 B)
+// at a 128 B pitch, 8-row atoms 1024 B apart (stride byte offset); the
+// leading byte offset is unused for this layout
+__device__ __forceinline__ uint64_t gmma_desc(const void* p) {
+  const uint32_t a = smem_addr(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous product
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// byte offset of the 16-byte chunk c8 (0..7) of row r in a swizzled sub-block
+__device__ __forceinline__ int swz(int r, int c8) { return r * 128 + ((c8 ^ (r & 7)) << 4); }
+
+__device__ __forceinline__ void push_top2(float& best, float& second, int& arg, float d,
+                                          int col) {
+  if (d < best) {
+    second = best;
+    best = d;
+    arg = col;
+  } else {
+    second = fminf(second, d);
+  }
+}
+
+// fold the partial top-2 (ob, os, oa) into (best, second, arg), lowest
+// column on ties
+__device__ __forceinline__ void join_top2(float& best, float& second, int& arg, float ob,
+                                          float os, int oa) {
+  if (ob < best || (ob == best && oa < arg)) {
+    second = fminf(os, best);
+    best = ob;
+    arg = oa;
+  } else {
+    second = fminf(second, ob);
+  }
+}
+
+// merge the partial top-2 of lane ^ off into this lane's
+__device__ __forceinline__ void merge_top2(float& best, float& second, int& arg, int off) {
+  const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+  const float os = __shfl_xor_sync(0xffffffffu, second, off);
+  const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
+  join_top2(best, second, arg, ob, os, oa);
+}
+
+// two blocks an SM where two stages leave room for them (D = 128)
+template <int S>
+__global__ void __launch_bounds__(kWgThreads, S == 2 ? 2 : 1)
+knn_top2_wgmma_kernel(const __nv_bfloat16* __restrict__ desc, const float* __restrict__ bias,
+                      const int* __restrict__ pairs, const int* __restrict__ extent, int K,
+                      int D, float* __restrict__ best_out, float* __restrict__ second_out,
+                      int* __restrict__ arg_out, unsigned long long* __restrict__ colbest) {
+  extern __shared__ uint8_t smem_raw[];
+  // swizzle atoms must be 1024-byte aligned
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int nsub = D / 64;
+  const int nslice = D / kSlice;
+  uint8_t* As = smem;                                   // [nsub][128 rows][128 B]
+  uint8_t* Bs = smem + nsub * kSubBytes;                // [S][2][128 cols][128 B]
+  unsigned long long* colpart =
+      reinterpret_cast<unsigned long long*>(Bs + S * kStageBytes);   // [8][kTN]
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int p = blockIdx.y;
+  const int row0 = blockIdx.x * kBand;
+  const int img_i = pairs[2 * p];
+  const int img_j = pairs[2 * p + 1];
+  const __nv_bfloat16* di = desc + ((size_t)img_i * K + row0) * D;
+  const __nv_bfloat16* dj = desc + (size_t)img_j * K * D;
+  const float* bj = bias + (size_t)img_j * K;
+  const int n_tiles = (extent[img_j] + kTN - 1) / kTN;   // tiles holding a valid column
+  const int units = n_tiles * nslice;                     // (tile, channel slice) stages
+
+  // the band: 128 rows x D channels (rows past K read as 0)
+  const int chunks = D / 8;
+  for (int e = tid; e < kBand * chunks; e += kWgThreads) {
+    const int r = e / chunks;
+    const int ch = e - r * chunks;
+    uint8_t* dst = As + (ch >> 3) * kSubBytes + swz(r, ch & 7);
+    if (row0 + r < K) cp_async16(dst, di + (size_t)r * D + ch * 8);
+    else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  auto load_unit = [&](int u) {
+    if (u < units) {
+      const int t = u / nslice;
+      const int s = u - t * nslice;
+      uint8_t* stage = Bs + (u % S) * kStageBytes;
+      const int c0 = t * kTN;
+      for (int e = tid; e < kTN * 16; e += kWgThreads) {
+        const int col = e >> 4;
+        const int ch = e & 15;
+        uint8_t* dst = stage + (ch >> 3) * kSubBytes + swz(col, ch & 7);
+        if (c0 + col < K) cp_async16(dst, dj + (size_t)(c0 + col) * D + s * kSlice + ch * 8);
+        else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int u = 0; u < S - 1; ++u) load_unit(u);
+
+  // this thread's rows: g and g + 8 of its warp's 16 in its warpgroup's 64
+  const int ra = row0 + wg * 64 + (warp & 3) * 16 + g;
+  const int rb = ra + 8;
+  const float bias_a = ra < K ? bias[(size_t)img_i * K + ra] : 0.f;
+  const float bias_b = rb < K ? bias[(size_t)img_i * K + rb] : 0.f;
+  const float inf = __int_as_float(0x7f800000);
+  // a masked row's column keys are >= 1e30, which colarg never reports: a
+  // warp whose 16 rows are all masked (or past K) adds no column keys
+  const bool keys_live =
+      __any_sync(0xffffffffu, (ra < K && bias_a < kBig) || (rb < K && bias_b < kBig));
+  if (!keys_live)
+    for (int c = lane; c < kTN; c += 32) colpart[warp * kTN + c] = ~0ull;
+  // running top-2 of each row; with registers to spare (one block an SM)
+  // in two chains, even and odd columns, that the epilogue updates
+  // independently and that are merged at the end
+  constexpr int kChains = S == 2 ? 1 : 2;
+  float best_a[2] = {inf, inf}, second_a[2] = {inf, inf};
+  float best_b[2] = {inf, inf}, second_b[2] = {inf, inf};
+  int arg_a[2] = {0, 0}, arg_b[2] = {0, 0};
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int u = 0; u < units; ++u) {
+    cp_async_wait<S - 2>();
+    fence_proxy_async();
+    __syncthreads();   // stage u landed for every thread; stage u - 1 consumed
+    load_unit(u + S - 1);
+    const int t = u / nslice;
+    const int s = u - t * nslice;
+    const uint8_t* stage = Bs + (u % S) * kStageBytes;
+
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kSlice / 16; ++kk) {
+      const int sub = kk >> 2;
+      const int within = (kk & 3) * 32;
+      const uint64_t da = gmma_desc(As + (2 * s + sub) * kSubBytes + wg * 64 * 128 + within);
+      const uint64_t db = gmma_desc(stage + sub * kSubBytes + within);
+      wgmma_m64n128k16(acc, da, db, (s > 0 || kk > 0) ? 1 : 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    if (s != nslice - 1) continue;
+
+    // epilogue of column tile t: acc[4i + e] is (row g, column 8i + 2q + e),
+    // acc[4i + 2 + e] is (row g + 8, the same column). A column's 16 rows
+    // in this warp lie on the 8 lanes of one q; their keys are reduced in
+    // quarters of the tile (8 columns a lane) by a reduce-scatter over
+    // those lanes: each exchange halves the columns a lane holds, so 7
+    // shuffles leave every lane one column's minimum, where a butterfly
+    // per column would take 24.
+    const int c0 = t * kTN;
+    const int b0 = g & 1, b1 = (g >> 1) & 1, b2 = (g >> 2) & 1;
+#pragma unroll
+    for (int qt = 0; qt < 4; ++qt) {
+      unsigned long long key[8];   // key[2 ii + e]: column 8 (4 qt + ii) + 2q + e
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const int i = 4 * qt + ii;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + 8 * i + 2 * q + e;
+          const float bc = col < K ? __ldg(bj + col) : inf;
+          const float dist_a = fmaxf(2.f - 2.f * acc[4 * i + e], 0.f) + bc;
+          const float dist_b = fmaxf(2.f - 2.f * acc[4 * i + 2 + e], 0.f) + bc;
+          push_top2(best_a[e % kChains], second_a[e % kChains], arg_a[e % kChains], dist_a, col);
+          push_top2(best_b[e % kChains], second_b[e % kChains], arg_b[e % kChains], dist_b, col);
+          const unsigned long long ka =
+              ra < K ? ((unsigned long long)__float_as_uint(dist_a + bias_a) << 32) | (unsigned)ra
+                     : ~0ull;
+          const unsigned long long kb =
+              rb < K ? ((unsigned long long)__float_as_uint(dist_b + bias_b) << 32) | (unsigned)rb
+                     : ~0ull;
+          key[2 * ii + e] = ka < kb ? ka : kb;
+        }
+      }
+      if (!keys_live) continue;
+      // lanes g and g ^ 1 (then ^ 2, ^ 4): each keeps the half of its
+      // columns its bit of g selects and takes the partner's keys for it
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const unsigned long long give = b0 ? key[k] : key[k + 4];
+        const unsigned long long keep = b0 ? key[k + 4] : key[k];
+        const unsigned long long o = __shfl_xor_sync(0xffffffffu, give, 4);
+        key[k] = o < keep ? o : keep;
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const unsigned long long give = b1 ? key[k] : key[k + 2];
+        const unsigned long long keep = b1 ? key[k + 2] : key[k];
+        const unsigned long long o = __shfl_xor_sync(0xffffffffu, give, 8);
+        key[k] = o < keep ? o : keep;
+      }
+      {
+        const unsigned long long give = b2 ? key[0] : key[1];
+        const unsigned long long keep = b2 ? key[1] : key[0];
+        const unsigned long long o = __shfl_xor_sync(0xffffffffu, give, 16);
+        key[0] = o < keep ? o : keep;
+      }
+      // key[0] is entry 4 b0 + 2 b1 + b2 = 2 ii + e of the quarter
+      colpart[warp * kTN + 8 * (4 * qt + 2 * b0 + b1) + 2 * q + b2] = key[0];
+    }
+    __syncthreads();
+    if (tid < kTN && c0 + tid < K) {
+      unsigned long long m = colpart[tid];
+#pragma unroll
+      for (int w = 1; w < 8; ++w) m = colpart[w * kTN + tid] < m ? colpart[w * kTN + tid] : m;
+      atomicMin(&colbest[(size_t)p * K + c0 + tid], m);
+    }
+  }
+  cp_async_wait<0>();
+
+  // one chain per row, then the columns past the last computed tile: all
+  // masked, each exactly 1e30
+  if (kChains == 2) {
+    join_top2(best_a[0], second_a[0], arg_a[0], best_a[1], second_a[1], arg_a[1]);
+    join_top2(best_b[0], second_b[0], arg_b[0], best_b[1], second_b[1], arg_b[1]);
+  }
+  const int cs = n_tiles * kTN;
+  if (q == 0 && cs < K) {
+    push_top2(best_a[0], second_a[0], arg_a[0], kBig, cs);
+    push_top2(best_b[0], second_b[0], arg_b[0], kBig, cs);
+    if (K - cs > 1) {
+      second_a[0] = fminf(second_a[0], kBig);
+      second_b[0] = fminf(second_b[0], kBig);
+    }
+  }
+
+  // merge the quad's partial top-2s of each row, lowest column on ties
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    merge_top2(best_a[0], second_a[0], arg_a[0], off);
+    merge_top2(best_b[0], second_b[0], arg_b[0], off);
+  }
+  if (q == 0) {
+    if (ra < K) {
+      const size_t o = (size_t)p * K + ra;
+      best_out[o] = best_a[0];
+      second_out[o] = second_a[0];
+      arg_out[o] = arg_a[0];
+    }
+    if (rb < K) {
+      const size_t o = (size_t)p * K + rb;
+      best_out[o] = best_b[0];
+      second_out[o] = second_b[0];
+      arg_out[o] = arg_b[0];
+    }
+  }
+}
+
+template <int S>
+cudaError_t launch_wgmma(const __nv_bfloat16* desc, const float* bias, const int* pairs,
+                         const int* extent, int B, int K, int D, float* best, float* second,
+                         int* arg, unsigned long long* colbest, size_t smem,
+                         cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      knn_top2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      knn_top2_wgmma_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  e = cudaMemsetAsync(colbest, 0xff, (size_t)B * K * sizeof(unsigned long long), stream);
+  const dim3 grid((K + kBand - 1) / kBand, B);
+  knn_top2_wgmma_kernel<S><<<grid, kWgThreads, smem, stream>>>(desc, bias, pairs, extent, K,
+                                                               D, best, second, arg, colbest);
+  return cudaGetLastError();
+}
+
+// the bf16 kernel's pipeline stages and dynamic shared memory at width D:
+// D = 128 takes two stages, so that two blocks share an SM; wider, up to 4
+cudaError_t wgmma_plan(int D, int device, int* stages, int* smem) {
+  int optin = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (e != cudaSuccess) return e;
-  const dim3 grid(K / kTR, B);
-  knn_top2_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(desc), bias, pairs, K, D, best, second, arg, colbest);
+  const int fixed = (D / 64) * kSubBytes + kColpartBytes + 1024;   // + alignment slack
+  int s = D == 128 ? 2 : (optin - fixed) / kStageBytes;
+  s = s > 4 ? 4 : s;
+  if (s < 2) return cudaErrorInvalidConfiguration;
+  *stages = s;
+  *smem = fixed + s * kStageBytes;
+  return cudaSuccess;
+}
+
+cudaError_t launch(const void* desc, int dtype, const float* bias, const int* pairs,
+                   const int* extent, int B, int K, int D, float* best, float* second,
+                   int* arg, int* colarg, unsigned long long* colbest, cudaStream_t stream) {
+  cudaError_t e =
+      cudaMemsetAsync(colbest, 0xff, (size_t)B * K * sizeof(unsigned long long), stream);
+  if (e != cudaSuccess) return e;
+  if (dtype == 0) {
+    const size_t smem = (size_t)(D + kD) * kLds * sizeof(float);
+    // above 48 KB of dynamic shared memory a kernel must opt in (cheap;
+    // set on every launch so it holds for whichever device is current)
+    e = cudaFuncSetAttribute(knn_top2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    knn_top2_kernel<<<dim3(K / kTR, B), kThreads, smem, stream>>>(
+        static_cast<const float*>(desc), bias, pairs, K, D, best, second, arg, colbest);
+  } else {
+    int dev = 0, stages = 0, smem = 0;
+    e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    e = wgmma_plan(D, dev, &stages, &smem);
+    if (e != cudaSuccess) return e;
+    const __nv_bfloat16* d = static_cast<const __nv_bfloat16*>(desc);
+    if (stages == 2)
+      e = launch_wgmma<2>(d, bias, pairs, extent, B, K, D, best, second, arg, colbest, smem,
+                          stream);
+    else if (stages == 3)
+      e = launch_wgmma<3>(d, bias, pairs, extent, B, K, D, best, second, arg, colbest, smem,
+                          stream);
+    else
+      e = launch_wgmma<4>(d, bias, pairs, extent, B, K, D, best, second, arg, colbest, smem,
+                          stream);
+  }
+  if (e != cudaSuccess) return e;
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long n = (long long)B * K;
@@ -238,24 +643,27 @@ cudaError_t launch(const void* desc, const float* bias, const int* pairs, int B,
 extern "C" {
 
 // dtype: 0 = float32 descriptors, 1 = bfloat16. desc (N, K, D) row-major,
-// bias (N, K) float32, pairs (B, 2) int32, outputs (B, K); colbest is
-// (B, K) 64-bit scratch. K must be a multiple of 64, D a multiple of 128
-// up to 512; 0 < B <= 65535. Returns the CUDA status of the launches
+// bias (N, K) float32, pairs (B, 2) int32, extent (N,) int32 (bf16 only:
+// last valid slot + 1 of each image, 0 for none), outputs (B, K); colbest
+// is (B, K) 64-bit scratch. K must be a multiple of 64, D a multiple of
+// 128 up to 512; 0 < B <= 65535. Returns the CUDA status of the launches
 // (0 = success).
-int knn_top2_launch(const void* desc, int dtype, const float* bias,
-                    const int* pairs, int B, int K, int D, float* best, float* second,
-                    int* arg, int* colarg, unsigned long long* colbest,
-                    void* stream) {
+int knn_top2_launch(const void* desc, int dtype, const float* bias, const int* pairs,
+                    const int* extent, int B, int K, int D, float* best, float* second,
+                    int* arg, int* colarg, unsigned long long* colbest, void* stream) {
   if (K <= 0 || K % kTC != 0 || B <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
   if (D <= 0 || D % kD != 0 || D > kMaxD) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float>(desc, bias, pairs, B, K, D, best, second, arg, colarg, colbest,
-                              s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(desc, bias, pairs, B, K, D, best, second, arg, colarg,
-                                      colbest, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && extent == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch(desc, dtype, bias, pairs, extent, B, K, D, best, second, arg, colarg,
+                     colbest, static_cast<cudaStream_t>(stream));
+}
+
+// the bf16 kernel's launch at width D on `device`: out[0] pipeline stages,
+// out[1] dynamic shared memory bytes. Returns the CUDA status.
+int knn_top2_wgmma_plan(int D, int device, int* out) {
+  if (D <= 0 || D % kD != 0 || D > kMaxD) return (int)cudaErrorInvalidValue;
+  return (int)wgmma_plan(D, device, &out[0], &out[1]);
 }
 
 const char* knn_top2_error_string(int status) {

@@ -15,6 +15,9 @@ TPU package's function of the same name.
 raises; on a CPU tensor it runs ``knn_topk2_plain``, the same function in
 plain PyTorch, which is also what the kernel is held against on the card.
 ``LAUNCHES`` counts kernel launches (plain-version calls do not count).
+bf16 descriptors take the kernel's tensor-core (``wgmma``) product, which
+skips the column tiles past each image's last valid slot
+(``column_extents``); float32 ones its SIMT product.
 
 Masked slots ride a large-finite bias (1e30) instead of inf so no
 inf - inf NaNs can appear in the reductions.
@@ -65,13 +68,27 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
     if not getattr(lib, "_knn_bound", False):
         vp = ctypes.c_void_p
-        lib.knn_top2_launch.argtypes = [vp, ctypes.c_int, vp, vp, ctypes.c_int,
+        lib.knn_top2_launch.argtypes = [vp, ctypes.c_int, vp, vp, vp, ctypes.c_int,
                                         ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, vp, vp]
         lib.knn_top2_launch.restype = ctypes.c_int
+        lib.knn_top2_wgmma_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
+        lib.knn_top2_wgmma_plan.restype = ctypes.c_int
         lib.knn_top2_error_string.argtypes = [ctypes.c_int]
         lib.knn_top2_error_string.restype = ctypes.c_char_p
         lib._knn_bound = True
     return lib
+
+
+def wgmma_plan(D: int, device: torch.device) -> dict:
+    """The bf16 kernel's launch at descriptor width D on ``device``:
+    pipeline stages and dynamic shared memory bytes."""
+    lib = _lib()
+    out = (ctypes.c_int * 2)()
+    status = lib.knn_top2_wgmma_plan(D, device.index, out)
+    if status != 0:
+        raise RuntimeError("knn_topk2: " + lib.knn_top2_error_string(status).decode())
+    return {"stages": out[0], "smem_bytes": out[1]}
 
 
 def _packed_lib() -> ctypes.CDLL:
@@ -91,6 +108,16 @@ def supported(K: int, D: int) -> bool:
     """Whether the kernel handles this descriptor layout: K a multiple of
     128, D a multiple of 128 up to 512 (SIFT 128, SuperPoint 256)."""
     return K % 128 == 0 and D % 128 == 0 and 0 < D <= 512
+
+
+def column_extents(bias: torch.Tensor) -> torch.Tensor:
+    """Per image, the last valid slot + 1 (0 for none), int32 (N,): the
+    bf16 kernel computes the column tiles of image j below its extent only
+    and gives the masked columns past it in closed form. Any mask, not only
+    a prefix: a valid slot is one whose bias is below 1e30 / 2."""
+    K = bias.shape[1]
+    pos = torch.arange(1, K + 1, dtype=torch.int32, device=bias.device)
+    return torch.where(bias < _BIG * 0.5, pos, 0).amax(1).to(torch.int32).contiguous()
 
 
 def knn_topk2_plain(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor,
@@ -214,10 +241,12 @@ def knn_topk2(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor,
         else:
             lib = _lib()
             colbest = torch.empty((B, K), dtype=torch.int64, device=dev)   # 64-bit keys
+            extent = column_extents(bias)
             status = lib.knn_top2_launch(
                 desc.data_ptr(), _DTYPE_CODE[desc.dtype], bias.data_ptr(),
-                pair_idx.data_ptr(), B, K, D, best.data_ptr(), second.data_ptr(),
-                arg.data_ptr(), colarg.data_ptr(), colbest.data_ptr(), stream)
+                pair_idx.data_ptr(), extent.data_ptr(), B, K, D, best.data_ptr(),
+                second.data_ptr(), arg.data_ptr(), colarg.data_ptr(), colbest.data_ptr(),
+                stream)
             error = lib.knn_top2_error_string
     if status != 0:
         raise RuntimeError(f"{name} launch failed: " + error(status).decode())

@@ -17,13 +17,22 @@ tensor it runs ``sinkhorn_plain``, the same loop in plain PyTorch, which
 is also what the kernel is held against on the card. ``LAUNCHES`` counts
 kernel launches (plain-version calls do not count).
 
-Size: the kernel takes any chunk whose rows and columns (B*(M+1) and
-B*(N+1)) index in 32 bits, so every ``max_keypoints`` the configuration
-allows; at K = 4096 a pair's coupling is 67 MB and no longer stays in the
-card's L2, which costs time, not correctness. The JAX package's fallback
-to its XLA loop above 12 MiB (``superglue.py:348-353``,
-``pallas_sinkhorn.supported``) is a limit of the TPU's VMEM and has no
-counterpart here: on the card the kernel runs at every size or raises.
+The kernel loops over each pair's valid rows and columns only (masked
+ones underflow to exactly 0 in every other logsumexp), for any mask, not
+only prefixes; ``skip_plan`` states the per-pair index lists it builds
+from the marginals. Masked entries must be as ``augment`` builds them:
+-1e9 in log_mu / log_nu and in C outside the bins, alpha in the bins.
+``plan`` picks the cluster size of a chunk shape once (cached in
+``PLANS``).
+
+Size: the kernel takes any chunk whose rows and columns index in 32 bits
+and whose columns' state (20 bytes each) fits one block's shared memory:
+N + 1 <= 8193, so every SuperGlue K up to 8192. Rows of a pair beyond what
+its cluster's shared memory holds are read from device memory, which
+costs time, not correctness. The JAX package's fallback to its XLA loop
+above 12 MiB (``superglue.py:348-353``, ``pallas_sinkhorn.supported``) is
+a limit of the TPU's VMEM and has no counterpart here: on the card the
+kernel runs at every size ``supported`` accepts or raises.
 """
 
 from __future__ import annotations
@@ -38,8 +47,13 @@ SOURCE = "matching/csrc/sinkhorn.cu"
 REPLACES = "reconstructor_tpu/matching/pallas_sinkhorn.py:32"   # _sinkhorn_kernel
 _BIG_NEG = -1e9
 _INDEX_LIMIT = 2 ** 31 - 1
+MAX_N1 = 8193
 
 LAUNCHES = 0
+# the launch plan of each (B, M1, N1, device index) chunk shape: cluster
+# size, dynamic shared memory bytes, clusters resident at once and band
+# rows held in shared memory when every slot is valid
+PLANS: dict = {}
 
 
 def reset_launches() -> None:
@@ -51,8 +65,10 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
     if not getattr(lib, "_sinkhorn_bound", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.sinkhorn_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, vp]
+        lib.sinkhorn_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, ci, vp]
         lib.sinkhorn_launch.restype = ci
+        lib.sinkhorn_plan.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ctypes.c_int)]
+        lib.sinkhorn_plan.restype = ci
         lib.sinkhorn_error_string.argtypes = [ci]
         lib.sinkhorn_error_string.restype = ctypes.c_char_p
         lib._sinkhorn_bound = True
@@ -61,7 +77,42 @@ def _lib() -> ctypes.CDLL:
 
 def supported(B: int, M1: int, N1: int) -> bool:
     """Whether the kernel takes a (B, M1, N1) coupling."""
-    return B >= 1 and M1 >= 1 and N1 >= 1 and B * max(M1, N1) <= _INDEX_LIMIT
+    return (B >= 1 and M1 >= 1 and 1 <= N1 <= MAX_N1
+            and B * max(M1, N1) <= _INDEX_LIMIT)
+
+
+def skip_plan(log_mu: torch.Tensor, log_nu: torch.Tensor):
+    """The per-pair index lists of the kernel's loop, in plain PyTorch:
+    (rows_idx (B, M1), n_rows (B,), cols_idx (B, N1), n_cols (B,)), int32.
+    A row is valid where log_mu is above -1e9 / 2; rows_idx holds the
+    valid rows in order (the bin, always valid, last among them), then the
+    masked ones, and n_rows counts the valid ones. Columns likewise from
+    log_nu. Each block of the kernel builds the same lists for its pair
+    from the marginals by a block-wide prefix sum (the valid rows of its
+    band, every valid column), so a launch costs no pass of its own."""
+    def one(lm):
+        valid = lm > _BIG_NEG / 2
+        valid[:, -1] = True
+        idx = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+        return idx.to(torch.int32).contiguous(), valid.sum(1).to(torch.int32)
+    return one(log_mu) + one(log_nu)
+
+
+def plan(B: int, M1: int, N1: int, device: torch.device) -> dict:
+    """The launch of a (B, M1, N1) chunk on ``device`` (cached): cluster
+    size, dynamic shared memory, clusters resident at once and band rows
+    held in shared memory when every slot is valid."""
+    key = (B, M1, N1, device.index)
+    if key not in PLANS:
+        lib = _lib()
+        out = (ctypes.c_int * 4)()
+        status = lib.sinkhorn_plan(B, M1, N1, device.index, out)
+        if status != 0:
+            raise RuntimeError(f"sinkhorn: no launch for a ({B}, {M1}, {N1}) chunk: "
+                               + lib.sinkhorn_error_string(status).decode())
+        PLANS[key] = {"cluster": out[0], "smem_bytes": out[1], "active_clusters": out[2],
+                      "cached_rows": out[3]}
+    return PLANS[key]
 
 
 def augment(scores: torch.Tensor, alpha: torch.Tensor, mask0: torch.Tensor,
@@ -118,7 +169,7 @@ def sinkhorn_kernel(couplings: torch.Tensor, log_mu: torch.Tensor, log_nu: torch
     B, M1, N1 = couplings.shape
     if not supported(B, M1, N1):
         raise ValueError(f"sinkhorn_kernel: a ({B}, {M1}, {N1}) coupling does not "
-                         "index in 32 bits")
+                         f"index in 32 bits or has more than {MAX_N1} columns")
     if num_iters < 0:
         raise ValueError(f"sinkhorn_kernel: num_iters must be >= 0, got {num_iters}")
     for name, t, shape in (("couplings", couplings, (B, M1, N1)), ("log_mu", log_mu, (B, M1)),
@@ -133,6 +184,7 @@ def sinkhorn_kernel(couplings: torch.Tensor, log_mu: torch.Tensor, log_nu: torch
             raise ValueError(f"sinkhorn_kernel: {name} must be contiguous")
     lib = _lib()
     dev = couplings.device
+    launch = plan(B, M1, N1, dev)
     out = torch.empty_like(couplings)
     u = torch.empty((B, M1), dtype=torch.float32, device=dev)
     v = torch.empty((B, N1), dtype=torch.float32, device=dev)
@@ -140,7 +192,8 @@ def sinkhorn_kernel(couplings: torch.Tensor, log_mu: torch.Tensor, log_nu: torch
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.sinkhorn_launch(
             couplings.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), B, M1, N1,
-            int(num_iters), u.data_ptr(), v.data_ptr(), out.data_ptr(), dev.index, stream)
+            int(num_iters), launch["cluster"], launch["smem_bytes"], u.data_ptr(),
+            v.data_ptr(), out.data_ptr(), dev.index, stream)
     if status != 0:
         raise RuntimeError("sinkhorn launch failed: "
                            + lib.sinkhorn_error_string(status).decode())

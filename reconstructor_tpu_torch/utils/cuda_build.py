@@ -13,7 +13,8 @@ builds side by side.
 The build directory is ``build/kernels`` beside the package (listed in
 ``.gitignore``), or ``$RECONSTRUCTOR_TORCH_BUILD_DIR`` when set. Nothing
 is compiled or loaded at import time: the first call of a kernel's
-wrapper on a CUDA tensor builds it.
+wrapper on a CUDA tensor builds it. ``-Xptxas -v`` makes nvcc print each
+kernel's registers, shared memory and spills; ``build_log`` returns it.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from pathlib import Path
 from typing import Dict
 
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a",
-         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+         "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -57,8 +58,15 @@ def _build(src: Path) -> Path:
     if proc.returncode != 0:
         Path(tmp).unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src.name}:\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)
     return out
+
+
+def build_log(rel: str) -> str:
+    """What nvcc printed when it built a kernel source (``-Xptxas -v``:
+    registers, shared memory, spills of each kernel), after ``load``."""
+    return _build(_PKG / rel).with_suffix(".log").read_text()
 
 
 def load(rel: str) -> ctypes.CDLL:

@@ -9,8 +9,10 @@ This file imports no JAX (the GPU machine has none; ``--noconftest``
 skips ``tests/conftest.py``, which configures JAX): it drives the same
 checks as ``chip_smoke.py``'s kernel phases — the top-2 kNN kernel against
 its plain PyTorch version on the TPU package's kernel-test cases, at the
-fountain dataset's shape and at SuperPoint's 256-wide descriptors, the
-Sinkhorn kernel against its plain version on ragged random scores, the
+fountain dataset's shape, at SuperPoint's 256-wide descriptors, on masks
+that are not prefixes and at the default path's shape, the Sinkhorn
+kernel against its plain version on ragged random scores (prefix and
+non-prefix masks, 0 to 100 iterations), the
 packed-int32 kNN kernel against its plain version and through the port's
 ``scripts/check_packed.py``, and the level-by-level kNN kernel of
 ``scripts/profile_knn_kernel.py`` against its plain version at every
@@ -47,6 +49,22 @@ def test_knn_kernel_at_fountain_shape(card):
 @pytest.mark.cuda
 def test_knn_kernel_superpoint_width(card):
     chip_smoke.knn_superpoint_width(card)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_non_prefix_masks(card):
+    chip_smoke.knn_non_prefix_masks(card)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_default_path_shape(card):
+    res = chip_smoke.knn_default_shape(card)
+    assert res["ms"] > 0
+
+
+@pytest.mark.cuda
+def test_knn_kernel_widest_descriptors(card):
+    chip_smoke.knn_wide_descriptors(card)
 
 
 @pytest.mark.cuda
