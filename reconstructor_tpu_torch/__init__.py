@@ -11,7 +11,8 @@ numpy, scipy and the standard library only: no JAX and nothing of
 - ``features``  — the DoG/SIFT-style detector, batched.
 - ``matching``  — exact top-2 kNN: the plain version and the CUDA kernel
                   (``matching/cuda_knn.py``, ``matching/csrc/knn_top2.cu``;
-                  the packed-int32 variant ``csrc/knn_packed.cu``).
+                  the packed-int32 variant ``csrc/knn_packed.cu``; their
+                  shared bf16 product ``csrc/knn_wgmma.cuh``).
 - ``ba``        — Levenberg-Marquardt bundle adjustment, dense Schur.
 - ``pipeline``  — the incremental reconstruction loop.
 - ``io``        — image reading/resizing (native libjpeg or PIL), PLY export.

@@ -17,7 +17,9 @@
 // flops-per-byte ridge. The (K, K) distance matrix never reaches device
 // memory, as the TPU kernel kept it in VMEM.
 //
-// bf16 input (the path's default), the design that answers that bound:
+// bf16 input (the path's default), the design that answers that bound
+// (its product, knn_wgmma.cuh, is shared with knn_packed.cu and
+// scripts/csrc/knn_levels.cu):
 // - one block of two warpgroups per (pair, 128 rows of image i); the
 //   band's bf16 descriptors stay in shared memory, all D channels, in the
 //   128-byte-swizzled K-major layout that wgmma descriptors read;
@@ -69,6 +71,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "knn_wgmma.cuh"
 
 namespace {
 
@@ -243,116 +247,14 @@ __global__ void knn_colarg_kernel(const unsigned long long* __restrict__ colbest
 // ---------------------------------------------------------------------
 // bf16: wgmma product
 // ---------------------------------------------------------------------
-constexpr int kBand = 128;         // rows of image i per block (two warpgroups)
-constexpr int kTN = 128;           // columns of image j per tile
-constexpr int kSlice = 128;        // channels per pipeline stage
-constexpr int kWgThreads = 256;
-constexpr int kSubBytes = 128 * 128;           // 128 rows x 64 channels of bf16
-constexpr int kStageBytes = 2 * kSubBytes;     // 128 columns x 128 channels
-constexpr int kColpartBytes = 8 * kTN * 8;     // 8 warps x 128 columns of 64-bit keys
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// shared memory written by this thread (cp.async, stores) visible to wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// a K-major operand in the 128-byte swizzle: rows of 64 channels (128 B)
-// at a 128 B pitch, 8-row atoms 1024 B apart (stride byte offset); the
-// leading byte offset is unused for this layout
-__device__ __forceinline__ uint64_t gmma_desc(const void* p) {
-  const uint32_t a = smem_addr(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous product
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// byte offset of the 16-byte chunk c8 (0..7) of row r in a swizzled sub-block
-__device__ __forceinline__ int swz(int r, int c8) { return r * 128 + ((c8 ^ (r & 7)) << 4); }
-
-__device__ __forceinline__ void push_top2(float& best, float& second, int& arg, float d,
-                                          int col) {
-  if (d < best) {
-    second = best;
-    best = d;
-    arg = col;
-  } else {
-    second = fminf(second, d);
-  }
-}
-
-// fold the partial top-2 (ob, os, oa) into (best, second, arg), lowest
-// column on ties
-__device__ __forceinline__ void join_top2(float& best, float& second, int& arg, float ob,
-                                          float os, int oa) {
-  if (ob < best || (ob == best && oa < arg)) {
-    second = fminf(os, best);
-    best = ob;
-    arg = oa;
-  } else {
-    second = fminf(second, ob);
-  }
-}
-
-// merge the partial top-2 of lane ^ off into this lane's
-__device__ __forceinline__ void merge_top2(float& best, float& second, int& arg, int off) {
-  const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-  const float os = __shfl_xor_sync(0xffffffffu, second, off);
-  const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
-  join_top2(best, second, arg, ob, os, oa);
-}
+// The tile constants, the cp.async / wgmma / swizzle helpers, the row
+// top-2 helpers and the launch plan are knn_wgmma.cuh's, shared with the
+// packed and level kernels. This kernel writes its band load, stage ring,
+// product loop and column-key reduce-scatter inline: the header's
+// functions for them issue the same instructions in the same k-step
+// order, but here they changed the compiled code (registers and spills),
+// and this kernel's code is held as it was.
+using namespace knn_wgmma;
 
 // two blocks an SM where two stages leave room for them (D = 128)
 template <int S>
@@ -581,21 +483,6 @@ cudaError_t launch_wgmma(const __nv_bfloat16* desc, const float* bias, const int
   knn_top2_wgmma_kernel<S><<<grid, kWgThreads, smem, stream>>>(desc, bias, pairs, extent, K,
                                                                D, best, second, arg, colbest);
   return cudaGetLastError();
-}
-
-// the bf16 kernel's pipeline stages and dynamic shared memory at width D:
-// D = 128 takes two stages, so that two blocks share an SM; wider, up to 4
-cudaError_t wgmma_plan(int D, int device, int* stages, int* smem) {
-  int optin = 0;
-  cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (e != cudaSuccess) return e;
-  const int fixed = (D / 64) * kSubBytes + kColpartBytes + 1024;   // + alignment slack
-  int s = D == 128 ? 2 : (optin - fixed) / kStageBytes;
-  s = s > 4 ? 4 : s;
-  if (s < 2) return cudaErrorInvalidConfiguration;
-  *stages = s;
-  *smem = fixed + s * kStageBytes;
-  return cudaSuccess;
 }
 
 cudaError_t launch(const void* desc, int dtype, const float* bias, const int* pairs,

@@ -17,14 +17,17 @@ plain PyTorch, which is also what the kernel is held against on the card.
 ``LAUNCHES`` counts kernel launches (plain-version calls do not count).
 bf16 descriptors take the kernel's tensor-core (``wgmma``) product, which
 skips the column tiles past each image's last valid slot
-(``column_extents``); float32 ones its SIMT product.
+(``column_extents``); float32 ones its SIMT product. The packed variant
+below takes the same product (``csrc/knn_wgmma.cuh``) and skips the same
+way.
 
 Masked slots ride a large-finite bias (1e30) instead of inf so no
 inf - inf NaNs can appear in the reductions.
 
 ``knn_topk2(..., packed=True)`` is the TPU package's packed variant
 (``_knn_kernel_packed``, ``csrc/knn_packed.cu``, counted in
-``LAUNCHES_PACKED``): each distance is quantised to 2^-17 and packed with
+``LAUNCHES_PACKED``, its bf16 tensor-core launches also in
+``LAUNCHES_PACKED_BF16``): each distance is quantised to 2^-17 and packed with
 its slot in one int32 key, so one integer min gives value and argmin; its
 bias is int32 (0 valid / ``_DMAX`` masked) and K <= 4096. As in the TPU
 package, ``match_all_pairs_fused`` keeps it off: it is reached only from
@@ -56,12 +59,14 @@ PACKED_MAX_K = 4096
 
 LAUNCHES = 0
 LAUNCHES_PACKED = 0
+LAUNCHES_PACKED_BF16 = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES, LAUNCHES_PACKED
+    global LAUNCHES, LAUNCHES_PACKED, LAUNCHES_PACKED_BF16
     LAUNCHES = 0
     LAUNCHES_PACKED = 0
+    LAUNCHES_PACKED_BF16 = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -95,7 +100,7 @@ def _packed_lib() -> ctypes.CDLL:
     lib = cuda_build.load(PACKED_SOURCE)
     if not getattr(lib, "_knn_bound", False):
         vp = ctypes.c_void_p
-        lib.knn_packed_launch.argtypes = [vp, ctypes.c_int, vp, vp, ctypes.c_int,
+        lib.knn_packed_launch.argtypes = [vp, ctypes.c_int, vp, vp, vp, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, vp]
         lib.knn_packed_launch.restype = ctypes.c_int
         lib.knn_packed_error_string.argtypes = [ctypes.c_int]
@@ -110,14 +115,17 @@ def supported(K: int, D: int) -> bool:
     return K % 128 == 0 and D % 128 == 0 and 0 < D <= 512
 
 
-def column_extents(bias: torch.Tensor) -> torch.Tensor:
+def column_extents(bias: torch.Tensor, valid_below: float = _BIG * 0.5) -> torch.Tensor:
     """Per image, the last valid slot + 1 (0 for none), int32 (N,): the
-    bf16 kernel computes the column tiles of image j below its extent only
-    and gives the masked columns past it in closed form. Any mask, not only
-    a prefix: a valid slot is one whose bias is below 1e30 / 2."""
+    bf16 kernels compute the column tiles of image j below its extent only
+    and give the masked columns past it in closed form. Any mask, not only
+    a prefix: a valid slot is one whose bias is below ``valid_below``,
+    1e30 / 2 for the float bias (0 / 1e30) and ``_DMAX`` for the packed
+    kernel's int32 bias (0 / ``_DMAX``), which passes the float rule
+    everywhere."""
     K = bias.shape[1]
     pos = torch.arange(1, K + 1, dtype=torch.int32, device=bias.device)
-    return torch.where(bias < _BIG * 0.5, pos, 0).amax(1).to(torch.int32).contiguous()
+    return torch.where(bias < valid_below, pos, 0).amax(1).to(torch.int32).contiguous()
 
 
 def knn_topk2_plain(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor,
@@ -228,15 +236,19 @@ def knn_topk2(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor,
     second = torch.empty((B, K), dtype=torch.float32, device=dev)
     arg = torch.empty((B, K), dtype=torch.int32, device=dev)
     colarg = torch.empty((B, K), dtype=torch.int32, device=dev)
-    global LAUNCHES, LAUNCHES_PACKED
+    global LAUNCHES, LAUNCHES_PACKED, LAUNCHES_PACKED_BF16
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if packed:
             lib = _packed_lib()
+            # the bf16 product skips tiles past the extents; float32's reads none
+            extent = (column_extents(bias, valid_below=_DMAX)
+                      if desc.dtype == torch.bfloat16 else None)
             status = lib.knn_packed_launch(
                 desc.data_ptr(), _DTYPE_CODE[desc.dtype], bias.data_ptr(),
-                pair_idx.data_ptr(), B, K, D, best.data_ptr(), second.data_ptr(),
-                arg.data_ptr(), colarg.data_ptr(), stream)
+                pair_idx.data_ptr(), None if extent is None else extent.data_ptr(),
+                B, K, D, best.data_ptr(), second.data_ptr(), arg.data_ptr(),
+                colarg.data_ptr(), stream)
             error = lib.knn_packed_error_string
         else:
             lib = _lib()
@@ -252,6 +264,8 @@ def knn_topk2(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor,
         raise RuntimeError(f"{name} launch failed: " + error(status).decode())
     if packed:
         LAUNCHES_PACKED += 1
+        if desc.dtype == torch.bfloat16:
+            LAUNCHES_PACKED_BF16 += 1
     else:
         LAUNCHES += 1
     return best, second, arg, colarg

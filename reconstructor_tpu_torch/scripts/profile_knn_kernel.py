@@ -13,7 +13,11 @@ its reductions switched on level by level (``csrc/knn_levels.cu``):
 
 On a CUDA tensor ``run`` launches the kernel (or raises) and counts it in
 ``LAUNCHES``; on a CPU tensor it runs ``run_plain``, the same function in
-plain PyTorch.
+plain PyTorch. In bf16 the kernel takes the top-2 kNN kernel's
+tensor-core product (``matching/csrc/knn_wgmma.cuh``, of which that kernel
+keeps an inline copy); level 3 is checked equal to that kernel's outputs
+with zero bias, bit for bit, so the levels split its epilogue; float32
+takes the SIMT product.
 
     python -m reconstructor_tpu_torch.scripts.profile_knn_kernel           # the sweep
     python -m reconstructor_tpu_torch.scripts.profile_knn_kernel --quick   # bf16: full vs packed

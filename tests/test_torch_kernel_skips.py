@@ -4,20 +4,27 @@ The Sinkhorn kernel (``matching/csrc/sinkhorn.cu``) loops over each pair's
 valid rows and columns only, folds the masked columns of the first row
 half-step into the bin row as a count, and writes the masked rows' u and
 columns' v in closed form. The bf16 kNN kernel (``matching/csrc/knn_top2.cu``)
-computes the column tiles of image j below its extent only and gives the
-masked columns past it in closed form. Neither kernel runs here, so each
-test drives a plain-PyTorch emulation of the kernel's skipped loop, built
-on the wrapper's own plan helpers (``cuda_sinkhorn.skip_plan``,
-``cuda_knn.column_extents``), and holds it against the plain version and
-the JAX package.
+and its packed-int32 variant (``matching/csrc/knn_packed.cu``) compute the
+column tiles of image j below its extent only and give the masked columns
+past it in closed form; the packed one also starts its column accumulator
+at ``_DMAX << 12`` and builds no column keys in warps whose 16 rows are
+all masked. No kernel runs here, so each test drives a plain-PyTorch
+emulation of the kernel's skipped loop, built on the wrapper's own plan
+helpers (``cuda_sinkhorn.skip_plan``, ``cuda_knn.column_extents``), and
+holds it against the plain version and the JAX package. Last, the build
+(``utils/cuda_build.py``) names each library by a hash that covers the
+headers its source includes, so an edit to the kNN kernels' shared
+``knn_wgmma.cuh`` rebuilds all three; that is checked without nvcc.
 
 Tolerances: float32 throughout. The Sinkhorn emulation sums its
 logsumexps in bands and merges them, as the kernel's cluster does, so it
 agrees with the plain loop, the JAX loop and the Pallas kernel (interpret
 mode) to 1e-4 absolute, the bound the TPU package holds between its
-kernel and its XLA loop. The kNN emulation computes every distance it
-keeps with the plain version's product, so rows and colarg are bit-equal.
+kernel and its XLA loop. The kNN emulations compute every distance they
+keep with the plain version's product, so rows and colarg are bit-equal.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +34,7 @@ import torch
 from reconstructor_tpu.matching import pallas_knn, pallas_sinkhorn
 from reconstructor_tpu.matching import superglue as jsg
 from reconstructor_tpu_torch.matching import cuda_knn, cuda_sinkhorn
+from reconstructor_tpu_torch.utils import cuda_build
 
 from torch_parity import t
 
@@ -311,3 +319,147 @@ def test_knn_column_extents():
     ext = cuda_knn.column_extents(t(bias)).numpy()
     np.testing.assert_array_equal(ext, [200, 1, 0, 70, 129, 201])
     assert ext.dtype == np.int32
+
+
+# ----------------------------------------------------------------------
+# packed-int32 top-2 kNN
+# ----------------------------------------------------------------------
+
+_DMAX = cuda_knn._DMAX
+_INT_MAX = 2**31 - 1
+
+
+def packed_emulated(desc, bias, pair_idx, tile, live_warps_only=True, start=_DMAX << 12):
+    """The bf16 packed kernel's skipped loop, per pair: the column tiles
+    below image j's extent (``column_extents`` with the int32 rule) are
+    computed (with the plain version's product, so every key is the
+    same), each folded into the row's two smallest keys as the kernel's
+    quad merge does; the columns past the last computed tile give the row
+    the keys (DMAX << 12) | cs and (DMAX << 12) | (cs + 1); the column
+    accumulator starts at ``start`` and takes, per computed tile, the
+    column keys of the 16-row warps with a valid row only
+    (``live_warps_only``)."""
+    N, K, _ = desc.shape
+    ext = cuda_knn.column_extents(bias, valid_below=_DMAX)
+    live = (bias < _DMAX).view(N, K // 16, 16).any(2)
+    if not live_warps_only:
+        live = torch.ones_like(live)
+    cols = torch.arange(K, dtype=torch.int32)
+    outs = []
+    for i, j in pair_idx.long().tolist():
+        sim = desc[i].float() @ desc[j].float().T
+        di = torch.clamp((2.0 - 2.0 * sim) * cuda_knn._SCALE, 0.0, float(_DMAX - 1))
+        di = torch.maximum(di.to(torch.int32), bias[j][None, :])
+        cs = min(K, -(-int(ext[j]) // tile) * tile)      # first skipped column
+        best = torch.full((K,), _INT_MAX, dtype=torch.int32)
+        second = best.clone()
+        colacc = torch.full((K,), start, dtype=torch.int32)
+        for c0 in range(0, cs, tile):
+            d = di[:, c0:c0 + tile]
+            keys = (d << 12) | cols[c0:c0 + tile]
+            tb = keys.amin(1)
+            ts = torch.where(keys == tb[:, None], _INT_MAX, keys).amin(1)
+            second = torch.minimum(torch.minimum(second, ts), torch.maximum(best, tb))
+            best = torch.minimum(best, tb)
+            ck = (torch.maximum(d, bias[i][:, None]) << 12) | cols[:, None]
+            ck = ck.view(K // 16, 16, -1)[live[i]]
+            if ck.shape[0]:
+                colacc[c0:c0 + tile] = torch.minimum(colacc[c0:c0 + tile], ck.amin(1).amin(0))
+        for c in range(cs, min(cs + 2, K)):      # the skipped region's two smallest keys
+            key = torch.tensor((_DMAX << 12) | c, dtype=torch.int32)
+            second = torch.minimum(second, torch.maximum(best, key))
+            best = torch.minimum(best, key)
+
+        def value(k):
+            v = (k >> 12).to(torch.float32) * (1.0 / cuda_knn._SCALE)
+            return torch.where(k >= (_DMAX << 12), _BIG, v)
+        outs.append((value(best), value(second), best & 4095, colacc & 4095))
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+@functools.lru_cache(maxsize=None)
+def packed_reference(reference):
+    desc, mask, pairs = knn_case()
+    bias = np.where(mask, 0, _DMAX).astype(np.int32)
+    if reference == "plain":
+        out = cuda_knn.knn_topk2_packed_plain(t(desc), t(bias), t(pairs))
+    else:
+        out = pallas_knn._knn_topk2(jnp.asarray(desc), jnp.asarray(bias), jnp.asarray(pairs),
+                                    interpret=True, packed=True)
+    return [np.asarray(x) for x in out]
+
+
+def packed_case():
+    desc, mask, pairs = knn_case()
+    return t(desc), t(np.where(mask, 0, _DMAX).astype(np.int32)), t(pairs)
+
+
+@pytest.mark.parametrize("warps", ["live only", "all"])
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("reference", ["plain", "pallas_interpret"])
+def test_packed_tile_skips_equal_references(tile, reference, warps):
+    """Skipping the tiles past the extent, starting the accumulator at
+    DMAX << 12 and leaving out the masked warps' column keys are each
+    exact: bit-equal to the plain version and the Pallas kernel, on
+    prefixes, a hole with a lone slot past it, an empty image and a
+    self-pair; the masked warps' keys, when built, change nothing."""
+    got = packed_emulated(*packed_case(), tile, live_warps_only=warps == "live only")
+    want = packed_reference(reference)
+    for a, b, what in zip(got, want, ("best", "second", "arg", "colarg")):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=what)
+
+
+def test_packed_needs_the_dmax_accumulator_start():
+    """Started at INT32_MAX, as the unskipped kernel may, the accumulator
+    of a skipped column would read slot 4095; the references give row 0,
+    which DMAX << 12 gives without any work."""
+    desc, bias, pairs = packed_case()
+    _, _, _, colarg = packed_emulated(desc, bias, pairs, 128, start=_INT_MAX)
+    want = packed_reference("plain")[3]
+    assert (colarg.numpy() != want).any()
+    assert set(colarg.numpy()[colarg.numpy() != want].tolist()) == {4095}
+    assert (want[colarg.numpy() != want] == 0).all()
+
+
+# ----------------------------------------------------------------------
+# the build hash covers included headers
+# ----------------------------------------------------------------------
+
+
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A source's library name hashes the source and every file it reaches
+    through quoted includes, resolved from the including file's directory
+    (as nvcc does); system includes and unrelated files do not count."""
+    monkeypatch.setenv("RECONSTRUCTOR_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "common").mkdir()
+    src = tmp_path / "csrc" / "k.cu"
+    hdr = tmp_path / "common" / "shared.cuh"
+    deep = tmp_path / "common" / "deeper.cuh"
+    other = tmp_path / "common" / "other.cuh"
+    src.write_text('#include <cuda_runtime.h>\n#include "../common/shared.cuh"\n'
+                   '__global__ void k() {}\n')
+    hdr.write_text('#pragma once\n  #  include "deeper.cuh"\n// #include "other.cuh"\n')
+    deep.write_text("constexpr int kX = 1;\n")
+    other.write_text("constexpr int kY = 1;\n")
+    assert cuda_build.sources(src) == [src.resolve(), hdr.resolve(), deep.resolve()]
+    first = cuda_build.library_path(src)
+    assert first.parent == tmp_path / "build" and first.name.startswith("libk_")
+    other.write_text("constexpr int kY = 2;\n")
+    assert cuda_build.library_path(src) == first
+    deep.write_text("constexpr int kX = 2;\n")
+    second = cuda_build.library_path(src)
+    assert second != first
+    hdr.write_text('#pragma once\n#include "deeper.cuh"\n')
+    assert cuda_build.library_path(src) not in (first, second)
+
+
+@pytest.mark.parametrize("source", ["matching/csrc/knn_top2.cu", "matching/csrc/knn_packed.cu",
+                                    "scripts/csrc/knn_levels.cu"])
+def test_knn_kernels_hash_their_shared_header(source):
+    """The three kNN kernel sources reach the shared product header
+    (``knn_levels.cu`` by a relative path from ``scripts/csrc``)."""
+    pkg = cuda_build._PKG
+    found = cuda_build.sources(pkg / source)
+    assert found[0] == (pkg / source).resolve()
+    assert (pkg / "matching" / "csrc" / "knn_wgmma.cuh").resolve() in found

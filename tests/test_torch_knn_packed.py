@@ -155,8 +155,8 @@ def test_check_packed_on_the_plain_versions():
 def test_wrapper_refuses_what_the_kernel_cannot_take():
     """Twelve bits hold the slot (K <= 4096), and the packed kernel's bias
     is int32 (0 / _DMAX): a float bias is refused, as is an int32 bias on
-    the float kernel. A CPU tensor takes the plain version and is not
-    counted as a launch."""
+    the float kernel. A CPU tensor, float32 or bfloat16, takes the plain
+    version and is not counted as a launch."""
     desc, mask, pairs = case_fully_masked()
     with pytest.raises(ValueError, match="bias"):
         cuda_knn.knn_topk2(t(desc), t(np.where(mask, 0.0, 1e30).astype(np.float32)), t(pairs),
@@ -167,9 +167,10 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="4096"):
         cuda_knn.knn_topk2(big, torch.zeros((1, 4096 + 128), dtype=torch.int32),
                            torch.zeros((1, 2), dtype=torch.int32), packed=True)
-    before = cuda_knn.LAUNCHES_PACKED
-    cuda_knn.knn_topk2(t(desc), t(packed_bias(mask)), t(pairs), packed=True)
-    assert cuda_knn.LAUNCHES_PACKED == before
+    before = cuda_knn.LAUNCHES_PACKED, cuda_knn.LAUNCHES_PACKED_BF16
+    for dtype in (torch.float32, torch.bfloat16):
+        cuda_knn.knn_topk2(t(desc).to(dtype), t(packed_bias(mask)), t(pairs), packed=True)
+    assert (cuda_knn.LAUNCHES_PACKED, cuda_knn.LAUNCHES_PACKED_BF16) == before
 
 
 def test_fused_matcher_keeps_the_packed_kernel_off():
@@ -183,3 +184,23 @@ def test_fused_matcher_keeps_the_packed_kernel_off():
     np.testing.assert_array_equal(np.asarray(fi), ti.numpy())
     np.testing.assert_array_equal(np.asarray(fm), tm.numpy())
     assert cuda_knn.LAUNCHES_PACKED == before
+
+
+def test_packed_column_extents_use_the_int32_rule():
+    """The bf16 packed kernel skips the column tiles past each image's last
+    valid slot, from ``column_extents(bias, valid_below=_DMAX)``: a slot is
+    valid when its int32 bias is below ``_DMAX``. The float kernel's rule
+    (bias below 1e30 / 2) would count every int32 slot valid, 0 and
+    ``_DMAX`` alike, and give K for every image."""
+    K = 256
+    mask = np.zeros((6, K), bool)
+    for n, count in enumerate((200, 1, 0, 70, 129)):
+        mask[n, :count] = True
+    mask[5, :150] = True
+    mask[5, 40:90] = False                       # a hole
+    mask[5, 200] = True                          # a lone valid slot past it
+    bias = t(packed_bias(mask))
+    ext = cuda_knn.column_extents(bias, valid_below=cuda_knn._DMAX).numpy()
+    np.testing.assert_array_equal(ext, [200, 1, 0, 70, 129, 201])
+    assert ext.dtype == np.int32
+    np.testing.assert_array_equal(cuda_knn.column_extents(bias).numpy(), [K] * 6)
