@@ -102,6 +102,36 @@ Phases, each printing one or more lines with its elapsed seconds:
               stage that launched CUDA work shows no device time, or if the
               registered count differs from an unprofiled run of the same
               views and seed.
+12. orb     — the ORB path (FAST + rotated BRIEF at D = 256, kNN + F-gate,
+              PnP, BA) on every third view (9 views at a 5.25 degree step:
+              at the scene's 1.75 degree step ORB's initial pair cannot
+              triangulate, in the JAX package too), default configuration.
+              It must register 9/9 with a normalised ATE under 10% and
+              launch the kNN kernel; the kernel in bf16 must then equal its
+              plain version exactly on the run's descriptors (every entry
+              +-1/16 or 0), and is timed there. The initial pair sees
+              mostly one wall, so a RANSAC draw can take a wrong motion
+              that fits as well and fails to triangulate; the phase prints
+              how many of 10 single draws pass on the run's matches.
+13. pcg     — (a) the default path with ``ba_solver="pcg"``: every bundle
+              adjustment through the implicit-Schur PCG solver (counted),
+              with the e2e phase's limits; (b) a street-scale problem over
+              the dense budget (100 cameras x 100,000 points, ~5e5
+              observations, built on the card from a seed with
+              ``tests/test_ba.py``'s noise model): the driver's rule must
+              pick PCG; PCG and the dense solver then run on it, each to a
+              final RMS within 10% of the 0.5 px noise, PCG finite, the
+              gauge camera unmoved; costs, gap, iterations, wall time and
+              peak memory printed.
+14. resume  — the ORB phase's run with autosaves every 3 registrations:
+              the autosave made when the third view registered loads field
+              for field equal to the state saved, and a fresh reconstructor
+              resumed from it registers the same views, with landmarks
+              within 2% and camera centres within 1% of the extent.
+15. ate     — a golden PLY of the scene's true camera centres written by
+              the port; ``ate_vs_golden`` on the e2e phase's centres within
+              a factor of 2 of its pose ATE, and ``ate_floor_vs_golden``
+              under 1%.
 
 The last two lines of standard output are a JSON object describing each
 kernel and a JSON object ``{"ok": true, "device": {...}}``. Any failure
@@ -1190,7 +1220,7 @@ def phase_e2e(dev, tmp: str, scene, imgs, cfg):
     res, _ = compare_knn(desc16, mask_d, chunk, exact=False, tol=1e-5,
                          min_match_agree=0.999, label="main-path inputs bf16")
     timing = time_knn(desc16, mask_d, chunk, "main-path inputs")
-    return launches["knn_top2"], res, timing, summary
+    return launches["knn_top2"], res, timing, summary, state
 
 
 def phase_learned(dev, tmp: str, scene, imgs, cfg):
@@ -1302,6 +1332,323 @@ def phase_profile(dev, tmp: str, imgs, rng_seed: int, n_views: int = 5):
     return summary
 
 
+# ----------------------------------------------------------------------
+# the ORB front end, the PCG bundle adjuster, checkpoints, golden-cloud ATE
+# ----------------------------------------------------------------------
+
+def every_third_view(scene, imgs):
+    """Views 0, 3, ..., 24 (a 5.25 degree step): ORB's initial pair cannot
+    triangulate at the scene's 1.75 degree step, in either package."""
+    views = list(range(0, len(imgs), 3))
+    return {"poses": scene["poses"][views]}, [imgs[i] for i in views]
+
+
+def initial_pair_draws(dev, state, cfg, seeds: int = 10) -> int:
+    """How many of ``seeds`` single draws of the initial pair (generators
+    seeded 0, 1, ...) pass the driver's yield test on the run's own
+    matches: at least ``min_2d3d_match_num`` landmarks and a quarter of the
+    pair's matches."""
+    import numpy as np
+    from reconstructor_tpu_torch.pipeline import checkpoint
+    from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
+    keep = ("num_images", "max_keypoints", "xy", "desc", "kp_mask", "kp_score", "colors",
+            "shapes", "intrinsics", "match_keys", "match_vals")
+    arrays = {k: v for k, v in checkpoint.arrays_of(state).items() if k in keep}
+    passed = 0
+    for seed in range(seeds):
+        rec = IncrementalReconstructor(cfg.with_(rng_seed=seed), verbose=False, device=dev)
+        st = checkpoint.state_from_arrays(arrays)
+        i1, i2, pose = rec.choose_initial_pair(st)
+        st.poses[i1] = np.eye(4, dtype=np.float32)
+        st.poses[i2] = pose
+        st.registered = [i1, i2]
+        rec.triangulate_initial_pair(st, i1, i2)
+        n = int((st.matches[(i1, i2)] >= 0).sum())
+        passed += int(st.num_landmarks >= cfg.min_2d3d_match_num and 4 * st.num_landmarks >= n)
+    return passed
+
+
+def phase_orb(dev, tmp: str, scene, imgs, cfg):
+    """The ORB path (FAST + rotated BRIEF, kNN at D = 256, F-gate, PnP,
+    BA) on every third view; then the kNN kernel in bf16 on the run's own
+    descriptors, which must equal its plain version exactly: every entry is
+    +-1/16 or 0, so every product and sum is exact, ties included.
+
+    The initial pair of these views sees mostly one wall, so the true
+    motion and a wrong one fit its matches nearly equally well, and a draw
+    that takes the wrong one fails to triangulate (the driver then redraws,
+    three times, as the JAX package does). The phase prints how many of 10
+    single draws on the run's matches pass the driver's yield test."""
+    import torch
+    sub, sub_imgs = every_third_view(scene, imgs)
+    rec, state, launches, summary = run_path(dev, tmp, "orb", sub, sub_imgs, cfg,
+                                             min_registered=len(sub_imgs))
+    check(launches["knn_top2"] > 0, "the ORB path never launched the kNN kernel")
+    summary["initial_pair_draws_passing_of_10"] = initial_pair_draws(dev, state, rec.config)
+    log("orb", f"landmarks {summary['landmarks']} (the JAX package on the CPU: 9/9 views, "
+               f"1015 landmarks, 0.11% ATE on these views and settings)")
+    desc_d, mask_d, _ = rec._device_frontend(state)
+    chunk = all_pairs(state.num_images, dev)
+    desc16 = desc_d.to(torch.bfloat16)
+    check(torch.equal(desc16.float(), desc_d), "ORB descriptors are not exact in bf16")
+    res, _ = compare_knn(desc16, mask_d, chunk, exact=True, tol=0.0, min_match_agree=1.0,
+                         label=f"ORB path inputs bf16 (N={state.num_images}, "
+                               f"Kt={desc_d.shape[1]}, D={desc_d.shape[2]}), exact")
+    summary["knn"] = time_knn(desc16, mask_d, chunk, "ORB path inputs")
+    log("orb", json.dumps(summary))
+    return summary
+
+
+def phase_pcg_path(dev, tmp: str, scene, imgs, cfg):
+    """The default path with ``ba_solver="pcg"``: every bundle adjustment
+    through the implicit-Schur PCG solver (counted), none through the dense
+    one."""
+    from reconstructor_tpu_torch.ba import distributed, lm as ba_lm
+    calls = {"pcg": 0, "dense": 0}
+    real_pcg, real_dense = distributed.solve_pcg, ba_lm.solve
+
+    def pcg(*a, **k):
+        calls["pcg"] += 1
+        return real_pcg(*a, **k)
+
+    def dense(*a, **k):
+        calls["dense"] += 1
+        return real_dense(*a, **k)
+    distributed.solve_pcg, ba_lm.solve = pcg, dense
+    try:
+        _, _, launches, summary = run_path(dev, tmp, "pcg", scene, imgs, cfg)
+    finally:
+        distributed.solve_pcg, ba_lm.solve = real_pcg, real_dense
+    log("pcg", f"BA calls {json.dumps(calls)}; landmarks {summary['landmarks']} (the JAX "
+               f"package on the CPU: 25/25 views, 2351 landmarks, 7.29% ATE)")
+    check(launches["knn_top2"] > 0, "the PCG path never launched the kNN kernel")
+    check(calls["pcg"] > 0 and calls["dense"] == 0,
+          f"the PCG path's bundle adjustments went elsewhere: {calls}")
+    summary["ba_calls"] = calls
+    log("pcg", json.dumps(summary))
+    return summary
+
+
+def street_problem(dev, seed: int = 0, n_cams: int = 100, n_pts: int = 100_000,
+                   views: int = 5, px_noise: float = 0.5, pose_noise: float = 0.02,
+                   pt_noise: float = 0.05):
+    """A street-scale BA problem, built on the card from ``seed`` with the
+    noise model of ``tests/test_ba.py::make_ba_problem``: ``n_cams``
+    cameras 0.5 apart along a track, looking sideways at a facade 8-20 m
+    away; each point observed by the ``views`` cameras nearest it that have
+    it in front and in the 640x480 frame, with ``px_noise`` pixels of noise;
+    camera 0 fixed, camera 1's translation fixed. Padded as the driver pads
+    (cameras to 16, points and observations to powers of two). Returns
+    (problem, host (obs_pt, obs_cam, obs_mask), live observations)."""
+    import numpy as np
+    import torch
+    from reconstructor_tpu_torch.ba import lm as ba_lm
+    from reconstructor_tpu_torch.geometry import se3
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def normal(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * std
+
+    i = torch.arange(n_cams, device=dev, dtype=torch.float32)
+    centres = torch.stack([0.5 * i, torch.zeros_like(i), torch.zeros_like(i)], 1)
+    aa = torch.stack([0.01 * torch.cos(i / 5), 0.05 * torch.sin(i / 7),
+                      torch.zeros_like(i)], 1)
+    R = se3.angle_axis_to_rotation(aa)
+    t = -torch.einsum("cij,cj->ci", R, centres)
+    intr = torch.tensor([600.0, 600.0, 320.0, 240.0, 0.0, 0.0], device=dev)
+    cams = torch.cat([aa, t, intr.expand(n_cams, 6)], 1)
+    lo = torch.tensor([0.0, -3.0, 8.0], device=dev)
+    hi = torch.tensor([0.5 * (n_cams - 1), 3.0, 20.0], device=dev)
+    pts = lo + (hi - lo) * torch.rand(n_pts, 3, generator=g, device=dev)
+
+    pc = torch.einsum("cij,lj->cli", R, pts) + t[:, None]
+    u = 600.0 * pc[..., 0] / pc[..., 2] + 320.0
+    v = 600.0 * pc[..., 1] / pc[..., 2] + 240.0
+    seen = (pc[..., 2] > 0.1) & (u >= 0) & (u < 640) & (v >= 0) & (v < 480)
+    dist = torch.where(seen, (pts[None, :, 0] - centres[:, None, 0]).abs(), float("inf"))
+    d, cam_ids = torch.topk(dist, views, dim=0, largest=False)          # (views, L)
+    ok = torch.isfinite(d)
+    obs_cam = cam_ids[ok]
+    obs_pt = torch.arange(n_pts, device=dev).expand(views, n_pts)[ok]
+    O = int(obs_cam.numel())
+    uv = ba_lm._resid(cams[obs_cam], pts[obs_pt], torch.zeros(O, 2, device=dev))
+    uv = uv + normal(O, 2, std=px_noise)
+
+    init = cams.clone()
+    init[2:, :3] += normal(n_cams - 2, 3, std=pose_noise)
+    init[2:, 3:6] += normal(n_cams - 2, 3, std=pose_noise * 5)
+    init[1, :3] += normal(3, std=pose_noise)
+    pts_init = pts + normal(n_pts, 3, std=pt_noise)
+
+    C_pad = max(16, -(-n_cams // 16) * 16)
+    L_pad = ba_lm._bucket(n_pts, 1)
+    O_pad = ba_lm._bucket(O, 1)
+
+    def pad(x, n):
+        out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=dev)
+        out[:x.shape[0]] = x
+        return out
+    free = torch.as_tensor(ba_lm.make_cam_free_mask(n_cams), device=dev)
+    mask = torch.zeros(O_pad, dtype=torch.bool, device=dev)
+    mask[:O] = True
+    prob = ba_lm.BAProblem(
+        cam_params=pad(init, C_pad), points=pad(pts_init, L_pad),
+        obs_cam=pad(obs_cam.to(torch.int32), O_pad), obs_pt=pad(obs_pt.to(torch.int32), O_pad),
+        obs_uv=pad(uv, O_pad), obs_mask=mask, cam_free=pad(free, C_pad))
+    host = tuple(np.ascontiguousarray(x.cpu().numpy())
+                 for x in (prob.obs_pt, prob.obs_cam, prob.obs_mask))
+    return prob, host, O
+
+
+def phase_pcg_street(dev, cfg):
+    """A BA problem over the dense budget (100 cameras x 100,000 points,
+    ~5e5 observations): the driver's rule must route it to PCG; then PCG
+    and the dense solver run on it with the driver's settings. Each final
+    RMS must be within 10% of the pixel noise, PCG's result finite and
+    the gauge camera unmoved."""
+    import numpy as np
+    import torch
+    from reconstructor_tpu_torch.ba import distributed, lm as ba_lm
+    from reconstructor_tpu_torch.pipeline import incremental
+    px_noise = 0.5
+    t = time.perf_counter()
+    prob, host, O = street_problem(dev, px_noise=px_noise)
+    torch.cuda.synchronize()
+    C_pad, L_pad = prob.cam_params.shape[0], prob.points.shape[0]
+    elems = C_pad * 12 * L_pad * 3
+    n_cams = int(prob.cam_free[:, 0].sum()) + 1
+    log("pcg", f"street problem built in {time.perf_counter() - t:.2f}s: {n_cams} cameras, "
+               f"{int(prob.obs_pt.max()) + 1} points, {O} observations; padded {C_pad} x {L_pad} x "
+               f"{prob.obs_uv.shape[0]}, dense coupling {elems:.3e} elements "
+               f"(budget {cfg.ba_dense_w_max_elems:.3e})")
+    check(incremental.uses_pcg(cfg, C_pad, L_pad), "the driver's rule would not route to PCG")
+    common = dict(max_iters=cfg.ba_max_iters_large, init_lambda=cfg.ba_init_lambda,
+                  lambda_up=cfg.ba_lambda_up, lambda_down=cfg.ba_lambda_down,
+                  ftol=cfg.ba_ftol, focal_upper_bound=cfg.ba_focal_upper_bound,
+                  huber_delta=cfg.ba_huber_delta, damping=cfg.ba_damping)
+    solvers = (("pcg", lambda: distributed.solve_pcg(prob, **common)),
+               ("dense", lambda: ba_lm.solve(prob, compact=False, host_obs=host, **common)))
+    out = {}
+    for name, solve in solvers:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        cost = float(res.cost_final)
+        rms = float(np.sqrt(cost / O))
+        out[name] = {"cost_initial": float(res.cost_initial), "cost_final": cost,
+                     "rms_px": rms, "iterations": int(res.iterations), "wall_s": wall,
+                     "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        log("pcg", f"street problem, {name}: " + json.dumps(out[name]))
+        check(bool(torch.isfinite(res.cam_params).all() and torch.isfinite(res.points).all()),
+              f"{name}: non-finite result")
+        check(torch.equal(res.cam_params[0], prob.cam_params[0]), f"{name}: gauge camera moved")
+        check(rms <= 1.1 * px_noise, f"{name}: final RMS {rms} px > 1.1 x {px_noise} px noise")
+    gap = abs(out["pcg"]["cost_final"] - out["dense"]["cost_final"]) / out["dense"]["cost_final"]
+    out["relative_gap"] = gap
+    log("pcg", f"street problem: final costs pcg {out['pcg']['cost_final']:.2f}, dense "
+               f"{out['dense']['cost_final']:.2f}, relative gap {gap:.3e} (expected < 1e-2)")
+    return out
+
+
+def phase_resume(dev, tmp: str, scene, imgs, cfg):
+    """The ORB phase's run with autosaves every 3 registrations; the
+    autosave made when the third view registered is copied, must load
+    field for field equal to the state saved, and a fresh reconstructor
+    resumed from it must register the same views, with landmarks within
+    2% and camera centres within 1% of the trajectory extent (float
+    atomics make CUDA runs differ in their last bits)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from reconstructor_tpu_torch.pipeline import checkpoint
+    from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
+    _, sub_imgs = every_third_view(scene, imgs)
+    d = os.path.join(tmp, "resume")
+    os.makedirs(d)
+    ckpt, mid, resumed = (os.path.join(d, n) for n in ("run.npz", "mid.npz", "resumed.npz"))
+    rec = IncrementalReconstructor(cfg, verbose=False, device=dev)
+    saved = {}
+    autosave = rec._autosave
+
+    def copying(state, path):
+        autosave(state, path)
+        if len(state.registered) == 3 and not saved:
+            shutil.copy(path, mid)
+            saved.update(checkpoint.arrays_of(state))
+    rec._autosave = copying
+    t = time.perf_counter()
+    full = rec.reconstruct_from_state(rec.detect_features_from_images(sub_imgs),
+                                      checkpoint_path=ckpt)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t
+    check(bool(saved), "no autosave was made when the third view registered")
+    loaded = checkpoint.arrays_of(checkpoint.load(mid))
+    check(sorted(loaded) == sorted(saved), "the checkpoint's fields differ from the state's")
+    for k in saved:
+        check(loaded[k].dtype == saved[k].dtype and np.array_equal(loaded[k], saved[k]),
+              f"checkpoint field {k} differs from the state saved")
+    meta = checkpoint.load_meta(mid)
+    check(meta.get("rng") == "torch" and meta.get("rng_device") == torch.device(dev).type,
+          f"checkpoint meta {meta.get('rng')}, {meta.get('rng_device')}")
+    shutil.copy(mid, resumed)
+    rec2 = IncrementalReconstructor(cfg, verbose=False, device=dev)
+    t = time.perf_counter()
+    again = rec2.reconstruct("", checkpoint_path=resumed, resume=True)
+    torch.cuda.synchronize()
+    t_resumed = time.perf_counter() - t
+
+    def centres(st):
+        return np.stack([-st.poses[i][:3, :3].T @ st.poses[i][:3, 3]
+                         for i in sorted(st.registered)])
+    res = {"registered": len(full.registered), "registered_resumed": len(again.registered),
+           "landmarks": int(full.num_landmarks), "landmarks_resumed": int(again.num_landmarks),
+           "saved_at_registered": int(len(saved["registered"])),
+           "run_s": t_full, "resumed_s": t_resumed}
+    check(sorted(again.registered) == sorted(full.registered),
+          f"resumed run registered {sorted(again.registered)}, uninterrupted "
+          f"{sorted(full.registered)}")
+    c1, c2 = centres(full), centres(again)
+    extent = float(np.linalg.norm(c1.max(0) - c1.min(0)))
+    res["centre_gap_of_extent"] = float(np.linalg.norm(c1 - c2, axis=1).max() / extent)
+    log("resume", json.dumps(res))
+    check(abs(res["landmarks_resumed"] - res["landmarks"]) <= 0.02 * res["landmarks"],
+          "resumed landmark count off by more than 2%")
+    check(res["centre_gap_of_extent"] <= 0.01, "resumed camera centres off by more than 1%")
+    return res
+
+
+def phase_ate(tmp: str, scene, state, pose_ate: float):
+    """Golden-cloud ATE: a PLY of the scene's true camera centres (green
+    rows, PCL dialect) written by the port, then ``ate_vs_golden`` on the
+    e2e phase's registered centres; its normalised ATE must lie within a
+    factor of 2 of ``synth.pose_ate``'s (the bound of
+    ``tests/test_torch_ate.py::test_golden_ate_tracks_pose_ate``), and the
+    methodology floor (``ate_floor_vs_golden``) under 1%."""
+    import numpy as np
+    from reconstructor_tpu_torch.eval import ate
+    from reconstructor_tpu_torch.io import ply
+    golden = os.path.join(tmp, "golden.ply")
+    ply.save_cloud(golden, scene["points"], np.full((len(scene["points"]), 3), 128, np.uint8),
+                   scene["poses"])
+    centres = np.stack([-state.poses[i][:3, :3].T @ state.poses[i][:3, 3]
+                        for i in sorted(state.registered)])
+    res = ate.ate_vs_golden(centres, golden)
+    res.update(ate.ate_floor_vs_golden(centres, golden))
+    res["pose_ate_normalized"] = pose_ate
+    log("ate", json.dumps(res))
+    ratio = res["ate_rmse_normalized"] / pose_ate
+    check(res["num_ref"] == len(scene["poses"]), f"golden cloud holds {res['num_ref']} cameras")
+    check(0.5 <= ratio <= 2.0, f"golden-cloud ATE {res['ate_rmse_normalized']} vs "
+                               f"pose ATE {pose_ate}: ratio {ratio}")
+    check(res["ate_floor_normalized"] < 0.01, f"ATE floor {res['ate_floor_normalized']}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rng-seed", type=int, default=0,
@@ -1361,8 +1708,9 @@ def main(argv=None) -> int:
     sp_weights = os.path.join(here, "tests", "data", "superpoint_synth.npz")
     kernels = []
     with tempfile.TemporaryDirectory() as tmp:
-        launches, res, t, summary = phase_e2e(
+        launches, res, t, summary, e2e_state = phase_e2e(
             dev, tmp, scene, imgs, ReconstructorConfig(rng_seed=args.rng_seed))
+        e2e_ate = summary["ate_normalized"]
         kernels.append({"name": "knn_top2", "route": "cuda",
                         "source": "reconstructor_tpu_torch/" + cuda_knn.SOURCE,
                         "replaces": cuda_knn.REPLACES, "launches": launches,
@@ -1397,6 +1745,13 @@ def main(argv=None) -> int:
                             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         trace_packed(dev)
         phase_profile(dev, tmp, imgs, args.rng_seed)
+        orb_cfg = ReconstructorConfig(detector="orb", rng_seed=args.rng_seed)
+        phase_orb(dev, tmp, scene, imgs, orb_cfg)
+        phase_pcg_path(dev, tmp, scene, imgs,
+                       ReconstructorConfig(ba_solver="pcg", rng_seed=args.rng_seed))
+        phase_pcg_street(dev, ReconstructorConfig(rng_seed=args.rng_seed))
+        phase_resume(dev, tmp, scene, imgs, orb_cfg.with_(checkpoint_every_views=3))
+        phase_ate(tmp, scene, e2e_state, e2e_ate)
     log("done", f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,13 +4,19 @@
         --max-keypoints 4096 [--device cuda]
 
 Runs the default path (SIFT, kNN + fundamental gate, PnP, dense-Schur
-BA), or the learned path with ``--detector superpoint --matcher
-superglue``, and writes ``clouds/cloud_final.ply`` and ``report.json``:
+BA), ORB with ``--detector orb``, or the learned path with ``--detector
+superpoint --matcher superglue``, and writes ``clouds/cloud_final.ply``
+and ``report.json``:
 
     python -m reconstructor_tpu_torch IMG_FOLDER OUT_FOLDER \
         --detector superpoint --matcher superglue \
         --superpoint-weights tests/data/superpoint_synth.npz \
         --superglue-weights structured
+
+``--checkpoint PATH`` autosaves the resumable state (npz) during the run,
+``--resume`` continues from it, ``--eval-ate GOLDEN_PLY`` prints the ATE
+against a golden cloud, and ``--save-matches`` / ``--render`` draw the
+matches and the final cloud (these two need PIL / matplotlib).
 """
 
 from __future__ import annotations
@@ -27,8 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("out_folder", help="output folder (clouds/ written here)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
-    p.add_argument("--detector", choices=["sift", "orb", "superpoint"], default="sift",
-                   help="orb is not built in this package yet")
+    p.add_argument("--detector", choices=["sift", "orb", "superpoint"], default="sift")
     p.add_argument("--matcher", choices=["knn", "superglue"], default="knn")
     p.add_argument("--max-keypoints", type=int, default=2048)
     p.add_argument("--img-max-size", type=int, default=512)
@@ -41,9 +46,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'structured', .npz or magicleap .pth; none = random init")
     p.add_argument("--save-intermediate", action="store_true",
                    help="dump cloud_before_i/cloud_after_i each iteration")
+    p.add_argument("--save-matches", action="store_true",
+                   help="dump side-by-side match visualizations (needs PIL)")
+    p.add_argument("--render", action="store_true",
+                   help="render the final cloud to render.png (needs matplotlib)")
+    p.add_argument("--checkpoint", default=None,
+                   help="autosave path for resumable state (.npz)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from --checkpoint if it exists (state and random stream)")
     p.add_argument("--pair-selection", choices=["exhaustive", "retrieval"],
                    default="exhaustive")
     p.add_argument("--retrieval-top-k", type=int, default=10)
+    p.add_argument("--eval-ate", default=None, metavar="GOLDEN_PLY",
+                   help="report ATE against a golden cloud after the run")
     p.add_argument("--local-ba-window", type=int, default=None,
                    help="windowed local BA size; 0 = global BA every view")
     p.add_argument("--global-ba-every", type=int, default=None,
@@ -76,9 +91,29 @@ def main(argv=None) -> int:
         cfg = cfg.with_(**overrides)
     rec = IncrementalReconstructor(cfg, verbose=not args.quiet, device=args.device)
     state = rec.reconstruct(args.img_folder, args.out_folder,
-                            save_intermediate=args.save_intermediate)
+                            save_intermediate=args.save_intermediate,
+                            checkpoint_path=args.checkpoint, resume=args.resume)
+
+    if args.save_matches:
+        from reconstructor_tpu_torch.utils import viz
+        viz.draw_all_matches(state, args.img_folder, args.out_folder)
+
+    if args.render:
+        import os
+        from reconstructor_tpu_torch.utils import viz
+        viz.render_cloud(os.path.join(args.out_folder, "clouds/cloud_final.ply"),
+                         os.path.join(args.out_folder, "render.png"))
+
     print(f"registered {len(state.registered)}/{state.num_images} views, "
           f"{state.num_landmarks} landmarks")
+
+    if args.eval_ate:
+        import json
+        import numpy as np
+        from reconstructor_tpu_torch.eval import ate
+        centers = np.stack([-state.poses[i][:3, :3].T @ state.poses[i][:3, 3]
+                            for i in state.registered])
+        print(json.dumps(ate.ate_vs_golden(centers, args.eval_ate), indent=2))
     return 0
 
 

@@ -154,9 +154,8 @@ class ReconstructorConfig:
     # refinement round (COLMAP-style retriangulation; resets points that
     # were triangulated against early, less-accurate poses).
     final_retriangulate: bool = True
-    # Checkpoint autosave cadence of the JAX package's reconstructor (views
-    # between full-state npz writes); this package does not write
-    # checkpoints yet.
+    # Checkpoint autosave cadence (registered views between full-state npz
+    # writes) when the reconstructor is given a checkpoint path.
     checkpoint_every_views: int = 3
     # Local (windowed) BA: when > 0 and more than ba_global_every views
     # are registered, each new view triggers a local BA over itself plus

@@ -213,8 +213,14 @@ def decompose_homography(H: torch.Tensor):
     Ma-Soatto Algorithm 5.2). H maps normalized coords cam1 -> cam2 as
     H = R + t n^T / d; candidates differ by the plane-normal sign
     ambiguity. Degenerate (pure-rotation) cases yield repeated candidates.
+
+    A candidate's t depends on the signs of the singular vectors, which
+    are the SVD library's choice: the SVD runs on the host (LAPACK, as in
+    the JAX package on the CPU) on every device. With cuSOLVER's signs
+    the card's candidates for a near-planar initial pair lost the true
+    motion that the CPU's held.
     """
-    U, lam, Vt = torch.linalg.svd(H)
+    U, lam, Vt = (x.to(H.device) for x in torch.linalg.svd(H.cpu()))
     l2 = torch.clamp(lam[1], min=1e-12)
     Hn = H / l2
     l1 = lam[0] / l2

@@ -1,19 +1,28 @@
-"""Reconstruction state from saved arrays.
+"""Reconstruction checkpoint / resume.
 
-``reconstructor_tpu.pipeline.checkpoint`` writes a ReconstructionState as
-one npz of named arrays. This module builds this package's state from
-arrays in that layout — read from such a file, or taken straight from a
-live state of the other package — so a run can continue here on the
-exact features and matches another run produced. Writing checkpoints and
-resuming the reconstructor's random stream are not part of this package
-yet.
+A ReconstructionState round-trips through one compressed npz of named
+arrays — frontend outputs, match tables, poses and the landmark /
+observation tables — in the layout of ``reconstructor_tpu.pipeline.
+checkpoint``, so each package reads the other's files and a run resumes
+after any stage. ``save`` writes through ``<path>.tmp.npz`` and
+``os.replace``, so an interrupted write leaves the last file whole.
+
+Beside the state, ``meta_json`` carries the config's scalar fields,
+``"rng": "torch"`` and the generator's device type, and ``caps``: ``{}``,
+because this package runs eagerly and keeps no sticky shape caps. The
+generator's ``get_state()`` bytes are stored as ``rng_state_torch``; the
+JAX package's ``rng_key`` is never written, and is not read here (a JAX
+key drives another stream of draws).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import json
+import os
+from typing import Mapping, Optional
 
 import numpy as np
+import torch
 
 from reconstructor_tpu_torch.pipeline.state import ReconstructionState
 
@@ -70,3 +79,43 @@ def load(path: str) -> ReconstructionState:
     """Read a checkpoint npz into a ReconstructionState."""
     with np.load(path, allow_pickle=False) as z:
         return state_from_arrays({k: z[k] for k in z.files})
+
+
+def save(path: str, state: ReconstructionState, config=None,
+         generator: Optional[torch.Generator] = None) -> None:
+    """Write the full resumable state to one compressed npz.
+
+    ``config`` (a ReconstructorConfig) and ``generator`` (the driver's
+    random stream) make a resumed run reproduce the interrupted one: same
+    thresholds, same draws."""
+    data = arrays_of(state)
+    meta = {"rng": "torch", "caps": {}}
+    if config is not None:
+        meta["config"] = {k: v for k, v in vars(config).items()
+                          if isinstance(v, (int, float, str, bool, type(None)))}
+    if generator is not None:
+        meta["rng_device"] = generator.device.type
+        data["rng_state_torch"] = generator.get_state().numpy()
+    data["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(tmp, **data)
+    os.replace(tmp, path)
+
+
+def load_meta(path: str) -> dict:
+    """Read back the metadata saved alongside the state ({} if none)."""
+    with np.load(path, allow_pickle=False) as z:
+        if "meta_json" not in z.files:
+            return {}
+        return json.loads(bytes(z["meta_json"].tobytes()).decode())
+
+
+def load_rng_state(path: str, device) -> Optional[torch.Tensor]:
+    """The saved generator state, for a generator on ``device``; None if
+    the file holds none, or one of a generator on another device type (a
+    CPU generator's state does not fit a CUDA one)."""
+    saved_on = load_meta(path).get("rng_device")
+    if saved_on != torch.device(device).type:
+        return None
+    with np.load(path, allow_pickle=False) as z:
+        return torch.from_numpy(np.array(z["rng_state_torch"]))

@@ -11,7 +11,8 @@ stage's math runs as a batched tensor program on the reconstructor's
 device:
 
 - detection: one batched program over the whole image batch
-  (features.sift, or features.superpoint on the learned path);
+  (features.sift, features.orb, or features.superpoint on the learned
+  path);
 - matching + epipolar gating: the CUDA top-2 kernel (matching.cuda_knn)
   on the card, the plain matcher on the CPU, fused with the batched
   fundamental-RANSAC gate per chunk of pairs (matching.gated); on the
@@ -21,7 +22,12 @@ device:
 - registration: batched P3P hypotheses (geometry.pnp);
 - triangulation + landmark validity: landmark-major observation tables
   swept in one batched program;
-- BA: dense Schur-complement LM (ba.lm).
+- BA: dense Schur-complement LM (ba.lm), or the implicit-Schur PCG
+  solver (ba.distributed) where the dense coupling would pass
+  ``ba_dense_w_max_elems`` or with ``ba_solver="pcg"``;
+- checkpoints: with ``checkpoint_path`` the state autosaves after the
+  initial pair, every ``checkpoint_every_views`` registrations and at the
+  end (pipeline.checkpoint), and ``resume`` continues from such a file.
 
 The TPU package pads every dynamic size to coarse buckets so that XLA
 compiles a handful of programs; PyTorch runs eagerly, so this loop
@@ -41,14 +47,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from reconstructor_tpu_torch.ba import lm as ba_lm
+from reconstructor_tpu_torch.ba import distributed, lm as ba_lm
 from reconstructor_tpu_torch.config import ReconstructorConfig
-from reconstructor_tpu_torch.features import sift, superpoint
+from reconstructor_tpu_torch.features import orb, sift, superpoint
 from reconstructor_tpu_torch.geometry import camera as cam
 from reconstructor_tpu_torch.geometry import epipolar, np_ops, pnp, se3, triangulation
 from reconstructor_tpu_torch.io import images as io_images
 from reconstructor_tpu_torch.io import ply
 from reconstructor_tpu_torch.matching import cuda_knn, gated, knn, pairs as pairing, superglue
+from reconstructor_tpu_torch.pipeline import checkpoint
 from reconstructor_tpu_torch.pipeline.state import ReconstructionState, MAX_VIEWS_PER_LANDMARK
 from reconstructor_tpu_torch.utils import device as devices
 from reconstructor_tpu_torch.utils.timing import TimeLogger
@@ -84,25 +91,31 @@ def _check_landmarks(xyz, poses_all, intr_all, obs_img, obs_feat, obs_mask,
     return valid, new_mask
 
 
+def uses_pcg(cfg: ReconstructorConfig, c_pad: int, l_pad: int) -> bool:
+    """The driver's BA routing rule: the implicit-Schur PCG solver when
+    asked for, or when the dense coupling's C_pad*12 x L_pad*3 elements
+    pass ``ba_dense_w_max_elems``."""
+    return cfg.ba_solver == "pcg" or c_pad * 12 * l_pad * 3 > cfg.ba_dense_w_max_elems
+
+
 class IncrementalReconstructor:
     """End-to-end incremental reconstruction (reconstruct() parity).
 
     ``device``: where every stage runs — ``cuda`` unless given (the tests
-    pass ``"cpu"``). Built in this package: detectors ``sift`` and
-    ``superpoint``, matchers ``knn`` and ``superglue``, dense-Schur
-    bundle adjustment.
+    pass ``"cpu"``). Detectors ``sift``, ``orb`` and ``superpoint``,
+    matchers ``knn`` and ``superglue``, dense-Schur or implicit-Schur PCG
+    bundle adjustment on one device.
     """
 
     def __init__(self, config: Optional[ReconstructorConfig] = None,
                  verbose: bool = True, device=None):
         self.config = config or ReconstructorConfig()
         cfg = self.config
-        if cfg.detector not in ("sift", "superpoint") or cfg.matcher not in ("knn", "superglue"):
-            raise NotImplementedError(
-                "reconstructor_tpu_torch runs detector 'sift' or 'superpoint' with matcher "
-                f"'knn' or 'superglue' (got {cfg.detector!r}, {cfg.matcher!r})")
-        if cfg.ba_solver != "dense_schur":
-            raise NotImplementedError("reconstructor_tpu_torch runs ba_solver='dense_schur'")
+        for name, value, known in (("detector", cfg.detector, ("sift", "orb", "superpoint")),
+                                   ("matcher", cfg.matcher, ("knn", "superglue")),
+                                   ("ba_solver", cfg.ba_solver, ("dense_schur", "pcg"))):
+            if value not in known:
+                raise ValueError(f"unknown {name} {value!r} (one of {', '.join(known)})")
         self.verbose = verbose
         self.device = devices.resolve(device)
         self.timer = TimeLogger()
@@ -117,18 +130,52 @@ class IncrementalReconstructor:
 
     # ------------------------------------------------------------------
     def reconstruct(self, img_folder: str, out_folder: Optional[str] = None,
-                    save_intermediate: bool = False) -> ReconstructionState:
-        with self.timer.event("feature extraction"):
-            state = self.detect_features(img_folder)
-        return self.reconstruct_from_state(state, out_folder, save_intermediate)
+                    save_intermediate: bool = False,
+                    checkpoint_path: Optional[str] = None,
+                    resume: bool = False) -> ReconstructionState:
+        """Detect, match and reconstruct a folder of images. With
+        ``resume`` and an existing ``checkpoint_path``, continue from that
+        file instead (state and generator; the folder is not read)."""
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            state = self.restore(checkpoint_path)
+        else:
+            with self.timer.event("feature extraction"):
+                state = self.detect_features(img_folder)
+        return self.reconstruct_from_state(state, out_folder, save_intermediate,
+                                           checkpoint_path=checkpoint_path)
+
+    def restore(self, checkpoint_path: str) -> ReconstructionState:
+        """Load a checkpoint's state and put the generator where the
+        writing run left it. This package keeps no sticky shape caps, so a
+        file's ``caps`` are not read. A file without a torch generator
+        state (one the JAX package wrote, whose ``rng_key`` drives another
+        stream) leaves the generator as it is."""
+        state = checkpoint.load(checkpoint_path)
+        gen_state = checkpoint.load_rng_state(checkpoint_path, self.device)
+        if gen_state is not None:
+            self._gen.set_state(gen_state)
+        else:
+            self._log(f"{checkpoint_path} holds no torch generator state for "
+                      f"{self.device.type}; the generator keeps its seed")
+        self._log(f"resumed from {checkpoint_path}: {len(state.registered)} views registered")
+        return state
+
+    def _autosave(self, state: ReconstructionState, checkpoint_path: Optional[str]) -> None:
+        if checkpoint_path:
+            checkpoint.save(checkpoint_path, state, config=self.config,
+                            generator=self._gen)
 
     def reconstruct_from_state(self, state: ReconstructionState,
                                out_folder: Optional[str] = None,
-                               save_intermediate: bool = False) -> ReconstructionState:
+                               save_intermediate: bool = False,
+                               checkpoint_path: Optional[str] = None) -> ReconstructionState:
         """Run the full pipeline from a prepared feature state: matching,
         initialization, the incremental register/BA loop, and output
-        artifacts. A partially registered state continues where it
-        stopped."""
+        artifacts. A partially registered state (a resumed checkpoint)
+        continues where it stopped; with ``checkpoint_path`` the state
+        autosaves after the initial pair, every
+        ``checkpoint_every_views`` registrations, after the last one and
+        at the end."""
         resuming = bool(state.registered)
         if out_folder and not resuming:
             # clear previous run artifacts (deleteDirectoryContents parity,
@@ -185,6 +232,7 @@ class IncrementalReconstructor:
                 state.poses[i2] = rel_pose
                 state.registered = [i1, i2]
                 self.triangulate_initial_pair(state, i1, i2)
+            self._autosave(state, checkpoint_path)
 
         if out_folder and save_intermediate and not resuming:
             self._save(state, os.path.join(out_folder, "clouds/cloud_initial.ply"))
@@ -227,6 +275,11 @@ class IncrementalReconstructor:
                 if out_folder and save_intermediate:
                     self._save(state, os.path.join(out_folder, f"clouds/cloud_after_{it}.ply"))
             self._log(f"registered img {added} | landmarks: {state.num_landmarks}")
+            # a full-state npz per view would cost seconds a view at 100
+            # views; every Nth view bounds the replay after a crash to N
+            if (it % max(cfg.checkpoint_every_views, 1) == 0
+                    or len(state.registered) == state.num_images):
+                self._autosave(state, checkpoint_path)
 
         for r in range(self.config.final_refinement_rounds):
             with self.timer.event("final refinement"):
@@ -239,6 +292,7 @@ class IncrementalReconstructor:
                 self.complete_tracks(state)
             self._log(f"final refinement {r + 1}: {state.num_landmarks} landmarks")
 
+        self._autosave(state, checkpoint_path)
         if out_folder:
             self._save(state, os.path.join(out_folder, "clouds/cloud_final.ply"))
             self._write_report(state, out_folder)
@@ -321,6 +375,11 @@ class IncrementalReconstructor:
                 conf_thresh=cfg.superpoint_conf_thresh,
                 nms_radius=cfg.superpoint_nms_radius,
                 border=cfg.superpoint_border)
+        elif cfg.detector == "orb":
+            feats = orb.detect_and_describe(
+                self._t(gray), self._t(shapes),
+                max_keypoints=cfg.max_keypoints,
+                threshold=cfg.orb_fast_threshold)
         else:
             feats = sift.detect_and_describe(
                 self._t(gray), self._t(shapes),
@@ -883,10 +942,6 @@ class IncrementalReconstructor:
                     cam_free[n_fixed:C, 6:8] = 1.0     # focal free
                     cam_free[n_fixed:C, 10:12] = 1.0   # distortion free
 
-        if C_pad * 12 * L_pad * 3 > cfg.ba_dense_w_max_elems:
-            raise NotImplementedError(
-                f"BA of {C} cameras x {L} landmarks exceeds ba_dense_w_max_elems; "
-                "the implicit-Schur PCG solver is not part of this package yet")
         prob = ba_lm.BAProblem(
             cam_params=self._t(cam_params), points=self._t(points),
             obs_cam=self._t(obs_cam_l), obs_pt=self._t(obs_pt), obs_uv=self._t(obs_uv),
@@ -895,11 +950,17 @@ class IncrementalReconstructor:
             max_iters = cfg.ba_local_max_iters
         else:
             max_iters = cfg.ba_max_iters_small if C < 10 else cfg.ba_max_iters_large
-        result = ba_lm.solve(prob, compact=False, host_obs=(obs_pt, obs_cam_l, obs_mask),
-                             max_iters=max_iters, init_lambda=cfg.ba_init_lambda,
-                             lambda_up=cfg.ba_lambda_up, lambda_down=cfg.ba_lambda_down,
-                             ftol=cfg.ba_ftol, focal_upper_bound=cfg.ba_focal_upper_bound,
-                             huber_delta=cfg.ba_huber_delta, damping=cfg.ba_damping)
+        common = dict(max_iters=max_iters, init_lambda=cfg.ba_init_lambda,
+                      lambda_up=cfg.ba_lambda_up, lambda_down=cfg.ba_lambda_down,
+                      ftol=cfg.ba_ftol, focal_upper_bound=cfg.ba_focal_upper_bound,
+                      huber_delta=cfg.ba_huber_delta, damping=cfg.ba_damping)
+        # the dense coupling W is (C*12, L*3): past the element budget the
+        # implicit-Schur PCG solver (no W, sums over observations) runs
+        if uses_pcg(cfg, C_pad, L_pad):
+            result = distributed.solve_pcg(prob, **common)
+        else:
+            result = ba_lm.solve(prob, compact=False, host_obs=(obs_pt, obs_cam_l, obs_mask),
+                                 **common)
         self._log(f"BA: cost {float(result.cost_initial):.1f} -> "
                   f"{float(result.cost_final):.1f} in {int(result.iterations)} iters")
 

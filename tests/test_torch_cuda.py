@@ -16,7 +16,8 @@ non-prefix masks, 0 to 100 iterations), the
 packed-int32 kNN kernel against its plain version and through the port's
 ``scripts/check_packed.py``, and the level-by-level kNN kernel of
 ``scripts/profile_knn_kernel.py`` against its plain version at every
-level.
+level; and, beside the kernels, the homography decomposition of the
+initial pair on the card against the CPU's.
 """
 
 import os
@@ -87,3 +88,24 @@ def test_packed_knn_kernel_and_check_packed(card):
 def test_level_knn_kernel_at_every_level(card):
     launches, res, _ = chip_smoke.phase_levels(card)
     assert launches > 0
+
+
+@pytest.mark.cuda
+def test_homography_candidates_equal_on_the_card(card):
+    """decompose_homography's candidates depend on the signs of the SVD's
+    singular vectors; the SVD runs on the host, so a homography on the card
+    gives the CPU's candidates (with cuSOLVER's signs the true motion of a
+    near-planar ORB pair dropped out of the card's set)."""
+    from reconstructor_tpu_torch.geometry import epipolar
+    import numpy as np
+    rng = np.random.default_rng(2)
+    for _ in range(20):
+        R = torch.linalg.matrix_exp(torch.tensor(
+            [[0.0, -1.0, 1.0], [1.0, 0.0, -1.0], [-1.0, 1.0, 0.0]]) * float(rng.normal(0, 0.05)))
+        t = torch.tensor(rng.normal(0, 1, 3), dtype=torch.float32)
+        n = torch.tensor([0.1, -0.2, 1.0])
+        H = R + torch.outer(t, n) / 6.0
+        for (Rc, tc), (Rg, tg) in zip(epipolar.decompose_homography(H),
+                                      epipolar.decompose_homography(H.to(card))):
+            torch.testing.assert_close(Rg.cpu(), Rc, atol=1e-4, rtol=0)
+            torch.testing.assert_close(tg.cpu(), tc, atol=1e-4, rtol=0)

@@ -42,3 +42,17 @@ def two_view(rng, n=200, outliers=0.3, noise=0.4):
     bad = rng.uniform(size=n) < outliers
     uv2[bad] = rng.uniform([0, 0], [320, 240], (int(bad.sum()), 2))
     return uv1.astype(np.float32), uv2.astype(np.float32), pts, R, tr
+
+
+def smoke_views(views):
+    """Views of the smoke script's 25-view 384x512 scene
+    (``scripts/profile_incremental.smoke_scene``), rendering only those:
+    (gray images (n, 384, 512) in [0, 1], world-to-camera poses (n, 4, 4)).
+    ORB needs its wider baselines: every 3rd view is a 5.25 degree step."""
+    from reconstructor_tpu_torch.eval import render
+    rng = np.random.default_rng(0)
+    tex_a, _ = render.make_blob_texture(rng, 1024, 1200)
+    tex_b, _ = render.make_blob_texture(rng, 1024, 1200)
+    poses = render.corner_rig(25, rng=rng)[list(views)]
+    imgs, _ = render.render_views(poses, tex_a, tex_b, 384, 512, 614.4)
+    return np.stack(imgs), poses
