@@ -115,7 +115,10 @@ Phases, each printing one or more lines with its elapsed seconds:
               how many of 10 single draws pass on the run's matches.
 13. pcg     — (a) the default path with ``ba_solver="pcg"``: every bundle
               adjustment through the implicit-Schur PCG solver (counted),
-              with the e2e phase's limits; (b) a street-scale problem over
+              with the e2e phase's limits; run twice, as users run it and
+              then under torch's deterministic algorithms (the solver's
+              ``index_add_`` sums then add in a fixed order instead of with
+              float atomics), the reference of the mesh phase's (a); (b) a street-scale problem over
               the dense budget (100 cameras x 100,000 points, ~5e5
               observations, built on the card from a seed with
               ``tests/test_ba.py``'s noise model): the driver's rule must
@@ -123,12 +126,39 @@ Phases, each printing one or more lines with its elapsed seconds:
               final RMS within 10% of the 0.5 px noise, PCG finite, the
               gauge camera unmoved; costs, gap, iterations, wall time and
               peak memory printed.
-14. resume  — the ORB phase's run with autosaves every 3 registrations:
+14. mesh    — the multi-device path (``parallel.mesh``,
+              ``parallel.sharding``, ``ba.distributed.solve_distributed``).
+              In this process, over a world of one under NCCL (a
+              ``FileStore`` in the temporary directory): (a) the default
+              path with ``mesh=`` at the pcg phase's seed and
+              configuration, under deterministic algorithms: every match
+              table equal to the deterministic pcg run's (and, printed,
+              whether the states are equal bit for bit), the same views
+              registered, landmarks within 2% and camera centres within 1%
+              of the extent, the kNN kernel launched, every BA through
+              ``solve_distributed``, stage times beside the pcg run's; (b) the learned run's
+              first two chunks (16 pairs) through
+              ``match_superglue_sharded`` beside ``match_pairs_batched``:
+              indices and masks equal, scores within 1e-5, the Sinkhorn
+              kernel launched; (c) the street problem through
+              ``solve_distributed`` beside ``solve_pcg``: final costs within
+              1e-4 relative, RMS within the pcg phase's limit, the gauge
+              camera unmoved, both wall times, the all-reduce calls and
+              one all-reduce's time. The group is then destroyed. (d) The
+              port's ``run_multiproc_dryrun.py`` with 2 ranks sharing the
+              card under gloo, and with 1: both ok, the 2 ranks with one
+              final BA cost below the initial / 100, every rank's match
+              table equal to the 1-rank run's, the kNN kernel launched in
+              each rank, and the driver's run with ``mesh=`` (5 rendered
+              views) ending in one state on every rank. (e) One NCCL rank
+              per card, min(4, count) ranks, the same checks, when there
+              are 2 or more cards; otherwise one line says it did not run.
+15. resume  — the ORB phase's run with autosaves every 3 registrations:
               the autosave made when the third view registered loads field
               for field equal to the state saved, and a fresh reconstructor
               resumed from it registers the same views, with landmarks
               within 2% and camera centres within 1% of the extent.
-15. ate     — a golden PLY of the scene's true camera centres written by
+16. ate     — a golden PLY of the scene's true camera centres written by
               the port; ``ate_vs_golden`` on the e2e phase's centres within
               a factor of 2 of its pose ATE, and ``ate_floor_vs_golden``
               under 1%.
@@ -142,12 +172,14 @@ this script, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 T0 = time.perf_counter()
@@ -1156,10 +1188,12 @@ def render_views():
     return scene, imgs
 
 
-def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 23):
-    """Drive one path through the user's entry points with every kernel's
-    launch counter set to 0 just before and read just after, and check
-    the reconstruction. Returns (reconstructor, state, launches, summary)."""
+def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 23,
+             mesh=None):
+    """Drive one path through the user's entry points (over ``mesh`` when
+    given) with every kernel's launch counter set to 0 just before and
+    read just after, and check the reconstruction. Returns
+    (reconstructor, state, launches, summary)."""
     import numpy as np
     import torch
     from reconstructor_tpu_torch.eval import synth
@@ -1168,7 +1202,7 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
 
     n_views = len(imgs)
     out = os.path.join(tmp, phase)
-    rec = IncrementalReconstructor(cfg, verbose=False, device=dev)
+    rec = IncrementalReconstructor(cfg, verbose=False, device=dev, mesh=mesh)
     cuda_knn.reset_launches()
     cuda_sinkhorn.reset_launches()
     t = time.perf_counter()
@@ -1246,7 +1280,7 @@ def phase_learned(dev, tmp: str, scene, imgs, cfg):
     timing = time_sinkhorn(scores, net.bin_score, m0, m1, cfg.superglue_sinkhorn_iters,
                            "main-path chunk")
     trained_gnn_on_card(dev, rec, state, first)
-    return launches["sinkhorn"], res, timing, summary
+    return launches["sinkhorn"], res, timing, summary, (rec, state)
 
 
 def trained_gnn_on_card(dev, rec, state, pair_idx):
@@ -1399,10 +1433,33 @@ def phase_orb(dev, tmp: str, scene, imgs, cfg):
     return summary
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms: on the card ``index_add_`` sorts
+    its index and adds in that order instead of with float atomics, so two
+    runs of the PCG path give the same bits. Operations without a
+    deterministic version only warn (silenced here), and uninitialised
+    memory is left as it is."""
+    import torch
+    import torch.utils.deterministic as det
+    fill = det.fill_uninitialized_memory
+    det.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+
+
 def phase_pcg_path(dev, tmp: str, scene, imgs, cfg):
-    """The default path with ``ba_solver="pcg"``: every bundle adjustment
-    through the implicit-Schur PCG solver (counted), none through the dense
-    one."""
+    """The default path with ``ba_solver="pcg"``, as users run it and then
+    under deterministic algorithms: every bundle adjustment through the
+    implicit-Schur PCG solver (counted), none through the dense one.
+    Returns the first run's summary and the second run (summary, state),
+    the mesh phase's reference."""
     from reconstructor_tpu_torch.ba import distributed, lm as ba_lm
     calls = {"pcg": 0, "dense": 0}
     real_pcg, real_dense = distributed.solve_pcg, ba_lm.solve
@@ -1417,16 +1474,22 @@ def phase_pcg_path(dev, tmp: str, scene, imgs, cfg):
     distributed.solve_pcg, ba_lm.solve = pcg, dense
     try:
         _, _, launches, summary = run_path(dev, tmp, "pcg", scene, imgs, cfg)
+        with deterministic():
+            _, det_state, det_launches, det_summary = run_path(dev, tmp, "pcg-det", scene,
+                                                               imgs, cfg)
     finally:
         distributed.solve_pcg, ba_lm.solve = real_pcg, real_dense
-    log("pcg", f"BA calls {json.dumps(calls)}; landmarks {summary['landmarks']} (the JAX "
-               f"package on the CPU: 25/25 views, 2351 landmarks, 7.29% ATE)")
-    check(launches["knn_top2"] > 0, "the PCG path never launched the kNN kernel")
+    log("pcg", f"BA calls of both runs {json.dumps(calls)}; landmarks {summary['landmarks']}, "
+               f"{det_summary['landmarks']} deterministic (the JAX package on the CPU: 25/25 "
+               f"views, 2351 landmarks, 7.29% ATE)")
+    check(launches["knn_top2"] > 0 and det_launches["knn_top2"] > 0,
+          "the PCG path never launched the kNN kernel")
     check(calls["pcg"] > 0 and calls["dense"] == 0,
           f"the PCG path's bundle adjustments went elsewhere: {calls}")
     summary["ba_calls"] = calls
     log("pcg", json.dumps(summary))
-    return summary
+    log("pcg-det", json.dumps(det_summary))
+    return summary, (det_summary, det_state)
 
 
 def street_problem(dev, seed: int = 0, n_cams: int = 100, n_pts: int = 100_000,
@@ -1501,6 +1564,14 @@ def street_problem(dev, seed: int = 0, n_cams: int = 100, n_pts: int = 100_000,
     return prob, host, O
 
 
+def street_ba_kwargs(cfg) -> dict:
+    """The driver's settings for a global BA of 10 or more cameras."""
+    return dict(max_iters=cfg.ba_max_iters_large, init_lambda=cfg.ba_init_lambda,
+                lambda_up=cfg.ba_lambda_up, lambda_down=cfg.ba_lambda_down,
+                ftol=cfg.ba_ftol, focal_upper_bound=cfg.ba_focal_upper_bound,
+                huber_delta=cfg.ba_huber_delta, damping=cfg.ba_damping)
+
+
 def phase_pcg_street(dev, cfg):
     """A BA problem over the dense budget (100 cameras x 100,000 points,
     ~5e5 observations): the driver's rule must route it to PCG; then PCG
@@ -1523,10 +1594,7 @@ def phase_pcg_street(dev, cfg):
                f"{prob.obs_uv.shape[0]}, dense coupling {elems:.3e} elements "
                f"(budget {cfg.ba_dense_w_max_elems:.3e})")
     check(incremental.uses_pcg(cfg, C_pad, L_pad), "the driver's rule would not route to PCG")
-    common = dict(max_iters=cfg.ba_max_iters_large, init_lambda=cfg.ba_init_lambda,
-                  lambda_up=cfg.ba_lambda_up, lambda_down=cfg.ba_lambda_down,
-                  ftol=cfg.ba_ftol, focal_upper_bound=cfg.ba_focal_upper_bound,
-                  huber_delta=cfg.ba_huber_delta, damping=cfg.ba_damping)
+    common = street_ba_kwargs(cfg)
     solvers = (("pcg", lambda: distributed.solve_pcg(prob, **common)),
                ("dense", lambda: ba_lm.solve(prob, compact=False, host_obs=host, **common)))
     out = {}
@@ -1552,6 +1620,242 @@ def phase_pcg_street(dev, cfg):
     log("pcg", f"street problem: final costs pcg {out['pcg']['cost_final']:.2f}, dense "
                f"{out['dense']['cost_final']:.2f}, relative gap {gap:.3e} (expected < 1e-2)")
     return out
+
+
+# ----------------------------------------------------------------------
+# the multi-device path
+# ----------------------------------------------------------------------
+
+def centres_of(state):
+    import numpy as np
+    return np.stack([-state.poses[i][:3, :3].T @ state.poses[i][:3, 3]
+                     for i in sorted(state.registered)])
+
+
+def mesh_path(dev, tmp: str, mesh, scene, imgs, cfg, pcg_run):
+    """(a) The default path with ``mesh=`` in a world of one under NCCL,
+    the ``pcg`` phase's seed and configuration, against its deterministic
+    run (``pcg_run``): every chunk's match table equal (same kernel, same
+    draws), the same views registered, landmarks within 2% and camera
+    centres within 1% of the extent, the kNN kernel launched, and every
+    bundle adjustment through ``solve_distributed``. Both runs use
+    deterministic algorithms, and an all-reduce over one rank is a copy, so
+    the two states are expected equal bit for bit; whether they are is
+    printed."""
+    import numpy as np
+    from reconstructor_tpu_torch.ba import distributed, lm as ba_lm
+    from reconstructor_tpu_torch.parallel import sharding
+    pcg_summary, pcg_state = pcg_run
+    calls = {"distributed": 0, "pcg": 0, "dense": 0}
+    real = distributed.solve_distributed, distributed.solve_pcg, ba_lm.solve
+
+    def dist_(*a, **k):
+        calls["distributed"] += 1
+        return real[0](*a, **k)
+
+    def pcg(*a, **k):
+        calls["pcg"] += k.get("reduce") is None        # a single-device solve
+        return real[1](*a, **k)
+
+    def dense(*a, **k):
+        calls["dense"] += 1
+        return real[2](*a, **k)
+    distributed.solve_distributed, distributed.solve_pcg, ba_lm.solve = dist_, pcg, dense
+    sharding.reset_counts()
+    try:
+        with deterministic():
+            _, state, launches, summary = run_path(dev, tmp, "mesh", scene, imgs, cfg,
+                                                   mesh=mesh)
+    finally:
+        distributed.solve_distributed, distributed.solve_pcg, ba_lm.solve = real
+    collectives = sharding.counts()
+    log("mesh", f"(a) BA calls {json.dumps(calls)}, collectives {json.dumps(collectives)}, "
+                f"kernel launches {json.dumps(launches)}")
+    for name in sorted(set(summary["stages_s"]) | set(pcg_summary["stages_s"])):
+        log("mesh", f"(a) stage '{name}': mesh {summary['stages_s'].get(name, 0.0):.2f}s, "
+                    f"pcg-det {pcg_summary['stages_s'].get(name, 0.0):.2f}s")
+    check(launches["knn_top2"] > 0, "the mesh path never launched the kNN kernel")
+    check(calls["distributed"] > 0 and calls["pcg"] == 0 and calls["dense"] == 0,
+          f"the mesh path's bundle adjustments went elsewhere: {calls}")
+    check(sorted(state.matches) == sorted(pcg_state.matches),
+          "the mesh path matched other pairs than the pcg run")
+    for k, m in state.matches.items():
+        check(np.array_equal(m, pcg_state.matches[k]), f"match table of pair {k} differs")
+    check(sorted(state.registered) == sorted(pcg_state.registered),
+          f"mesh registered {sorted(state.registered)}, pcg {sorted(pcg_state.registered)}")
+    n, m = state.num_landmarks, pcg_state.num_landmarks
+    check(abs(n - m) <= 0.02 * m, f"mesh landmarks {n}, pcg {m}: off by more than 2%")
+    c1, c2 = centres_of(pcg_state), centres_of(state)
+    gap = float(np.linalg.norm(c1 - c2, axis=1).max() / np.linalg.norm(c1.max(0) - c1.min(0)))
+    check(gap <= 0.01, f"mesh camera centres {gap} of the extent from the pcg run's")
+    same = (n == m and np.array_equal(state.lm_xyz, pcg_state.lm_xyz)
+            and all(np.array_equal(state.poses[i], pcg_state.poses[i]) for i in state.poses))
+    summary.update(ba_calls=calls, collectives=collectives, centre_gap_of_extent=gap,
+                   landmarks_pcg=int(m), bit_identical_to_pcg=bool(same))
+    log("mesh", "(a) " + json.dumps(summary))
+    return summary
+
+
+def mesh_superglue(dev, mesh, learned_run):
+    """(b) The learned run's first two chunks (16 pairs) through
+    ``match_superglue_sharded`` beside ``match_pairs_batched`` on the same
+    inputs: indices and masks equal, scores within 1e-5; the Sinkhorn
+    kernel must launch inside the sharded calls."""
+    import torch
+    from reconstructor_tpu_torch.matching import cuda_sinkhorn, superglue
+    from reconstructor_tpu_torch.parallel import sharding
+    rec, state = learned_run
+    cfg = rec.config
+    net = rec._superglue_params()
+    B = cfg.superglue_chunk_pairs
+    pairs = rec.select_pairs(state)[:2 * B].astype("int32")
+    args = [rec._t(a) for a in (state.desc, state.xy, state.kp_score, state.kp_mask,
+                                state.shapes)]
+    kw = dict(sinkhorn_iters=cfg.superglue_sinkhorn_iters, score_thresh=cfg.superglue_score_thresh)
+    launches, err, ms = 0, 0.0, {"sharded": 0.0, "batched": 0.0}
+    for s in range(0, len(pairs), B):
+        chunk = pairs[s:s + B]
+        cuda_sinkhorn.reset_launches()
+        a = sharding.match_superglue_sharded(mesh, net, *args, chunk, **kw)
+        launches += cuda_sinkhorn.LAUNCHES
+        b = superglue.match_pairs_batched(net, *args, rec._t(chunk), **kw)
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              f"sharded SuperGlue matches differ from match_pairs_batched on chunk {s // B}")
+        err = max(err, float((a[2] - b[2]).abs().max()))
+        ms["sharded"] += cuda_ms(lambda: sharding.match_superglue_sharded(
+            mesh, net, *args, chunk, **kw), iters=3, warmup=1)
+        ms["batched"] += cuda_ms(lambda: superglue.match_pairs_batched(
+            net, *args, rec._t(chunk), **kw), iters=3, warmup=1)
+    res = {"pairs": int(len(pairs)), "sinkhorn_launches": launches, "max_score_err": err,
+           "matches": int(b[1].sum()), "ms_two_chunks": ms}
+    log("mesh", "(b) learned SuperGlue, sharded vs batched: " + json.dumps(res))
+    check(err <= 1e-5, f"sharded SuperGlue scores {err} from match_pairs_batched's")
+    check(launches > 0, "match_superglue_sharded never launched the Sinkhorn kernel")
+    return res
+
+
+def mesh_street(dev, mesh, cfg):
+    """(c) The street problem through ``solve_distributed`` at a world of
+    one beside ``solve_pcg``: final costs within 1e-4 relative, the RMS
+    within the ``pcg`` phase's limit, the gauge camera unmoved; both wall
+    times (each solver twice, alternating, so that neither pays a first
+    call alone), the all-reduce calls and one all-reduce's time."""
+    import numpy as np
+    import torch
+    from reconstructor_tpu_torch.ba import distributed
+    from reconstructor_tpu_torch.parallel import sharding
+    px_noise = 0.5
+    prob, _, O = street_problem(dev, px_noise=px_noise)
+    common = street_ba_kwargs(cfg)
+    out = {}
+    for name in ("pcg", "distributed") * 2:
+        torch.cuda.synchronize()
+        sharding.reset_counts()
+        t = time.perf_counter()
+        if name == "distributed":
+            res = distributed.solve_distributed(mesh, prob, **common)
+        else:
+            res = distributed.solve_pcg(prob, **common)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        cost = float(res.cost_final)
+        walls = out.get(name, {}).get("wall_s", []) + [wall]
+        out[name] = {"cost_final": cost, "rms_px": float(np.sqrt(cost / O)),
+                     "iterations": int(res.iterations), "wall_s": walls,
+                     "all_reduces": sharding.counts()["all_reduce"]}
+        check(torch.equal(res.cam_params[0], prob.cam_params[0]), f"{name}: gauge camera moved")
+        check(out[name]["rms_px"] <= 1.1 * px_noise,
+              f"{name}: final RMS {out[name]['rms_px']} px > 1.1 x {px_noise} px noise")
+    # one (C, 12) all-reduce: CUDA events over 200 back to back, and the
+    # host's time to issue one (the path's BAs are host-bound)
+    C = prob.cam_params.shape[0]
+    buf = torch.zeros(C, 12, device=dev)
+    out["all_reduce_us_c12"] = 1e3 * cuda_ms(lambda: sharding.all_sum(mesh, buf), iters=200,
+                                              warmup=20)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(200):
+        sharding.all_sum(mesh, buf)
+    out["all_reduce_host_us_c12"] = 1e6 * (time.perf_counter() - t) / 200
+    torch.cuda.synchronize()
+    gap = (abs(out["distributed"]["cost_final"] - out["pcg"]["cost_final"])
+           / out["pcg"]["cost_final"])
+    out["relative_gap"] = gap
+    log("mesh", "(c) street problem, solve_distributed vs solve_pcg: " + json.dumps(out))
+    check(gap <= 1e-4, f"solve_distributed's final cost {gap} relative from solve_pcg's")
+    return out
+
+
+def run_dryrun(here: str, n: int, device: str, backend: str) -> dict:
+    """The port's ``run_multiproc_dryrun`` with ``n`` ranks; its merged
+    report. Its ranks load the kernels this script built."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "reconstructor_tpu_torch.scripts.run_multiproc_dryrun", str(n),
+         "--device", device, "--backend", backend, "--timeout", "240"],
+        cwd=here, env=dict(os.environ, PYTHONPATH=here), capture_output=True, text=True,
+        timeout=420)
+    check(proc.returncode == 0, f"run_multiproc_dryrun {n} {device} {backend} exited "
+                                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    log("mesh", f"run_multiproc_dryrun {n} --device {device} --backend {backend} "
+                f"({time.perf_counter() - t:.1f}s): "
+                + json.dumps({k: v for k, v in rep.items() if k != "workers"}))
+    for w in rep["workers"]:
+        log("mesh", f"  rank {w['rank']}: " + json.dumps(w))
+    return rep
+
+
+def check_dryrun(rep: dict, one: dict, n: int, label: str) -> None:
+    """Every rank ok, with the same final BA cost below the initial / 100,
+    the kNN kernel launched, the match table of the 1-rank run, and the
+    driver's run ending in the same state on every rank."""
+    check(rep["ok"] and len(rep["workers"]) == n, f"{label}: run not ok")
+    ref = one["workers"][0]["match_table_sha256"]
+    w0 = rep["workers"][0]
+    for w in rep["workers"]:
+        check(w["ba_cost_final"] == w0["ba_cost_final"],
+              f"{label}: ranks end with different BA costs")
+        check(w["driver_sha256"] == w0["driver_sha256"],
+              f"{label}: rank {w['rank']} ends the driver's run in another state than rank 0")
+        check(w["ba_cost_final"] < w["ba_cost_initial"] / 100,
+              f"{label}: rank {w['rank']} BA cost {w['ba_cost_final']}")
+        check(w["knn_launches"] > 0, f"{label}: rank {w['rank']} never launched the kNN kernel")
+        check(w["match_table_sha256"] == ref, f"{label}: rank {w['rank']} match table differs "
+                                              f"from the 1-rank run's")
+
+
+def phase_mesh(dev, tmp: str, here: str, scene, imgs, cfg, pcg_run, learned_run):
+    """The multi-device path: (a)-(c) in this process over a world of one
+    under NCCL (a ``FileStore`` in the temporary directory; the group is
+    destroyed after (c), so that later phases run as before), (d) two
+    ranks sharing the card under gloo, (e) one NCCL rank per card when
+    there are two or more."""
+    import torch
+    import torch.distributed as dist
+    from reconstructor_tpu_torch.parallel import sharding
+    mesh = sharding.initialize_multihost(f"file://{tmp}/nccl_store", 1, 0, backend="nccl",
+                                         device=dev, timeout_s=300)
+    log("mesh", f"world of one: rank {mesh.rank}/{mesh.size}, {mesh.backend}, {mesh.device}")
+    try:
+        res = {"path": mesh_path(dev, tmp, mesh, scene, imgs, cfg, pcg_run),
+               "superglue": mesh_superglue(dev, mesh, learned_run),
+               "street": mesh_street(dev, mesh, cfg)}
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    one = run_dryrun(here, 1, "cuda:0", "gloo")
+    two = run_dryrun(here, 2, "cuda:0", "gloo")
+    check_dryrun(one, one, 1, "(d) 1 rank")
+    check_dryrun(two, one, 2, "(d) 2 ranks sharing the card")
+    count = torch.cuda.device_count()
+    if count >= 2:
+        n = min(4, count)
+        check_dryrun(run_dryrun(here, n, "cuda", "nccl"), one, n, f"(e) {n} NCCL ranks")
+    else:
+        log("mesh", f"(e) one NCCL rank per card: not run, torch.cuda.device_count() = {count} "
+                    f"(needs 2)")
+    return res
 
 
 def phase_resume(dev, tmp: str, scene, imgs, cfg):
@@ -1602,9 +1906,6 @@ def phase_resume(dev, tmp: str, scene, imgs, cfg):
     torch.cuda.synchronize()
     t_resumed = time.perf_counter() - t
 
-    def centres(st):
-        return np.stack([-st.poses[i][:3, :3].T @ st.poses[i][:3, 3]
-                         for i in sorted(st.registered)])
     res = {"registered": len(full.registered), "registered_resumed": len(again.registered),
            "landmarks": int(full.num_landmarks), "landmarks_resumed": int(again.num_landmarks),
            "saved_at_registered": int(len(saved["registered"])),
@@ -1612,7 +1913,7 @@ def phase_resume(dev, tmp: str, scene, imgs, cfg):
     check(sorted(again.registered) == sorted(full.registered),
           f"resumed run registered {sorted(again.registered)}, uninterrupted "
           f"{sorted(full.registered)}")
-    c1, c2 = centres(full), centres(again)
+    c1, c2 = centres_of(full), centres_of(again)
     extent = float(np.linalg.norm(c1.max(0) - c1.min(0)))
     res["centre_gap_of_extent"] = float(np.linalg.norm(c1 - c2, axis=1).max() / extent)
     log("resume", json.dumps(res))
@@ -1722,7 +2023,8 @@ def main(argv=None) -> int:
             detector="superpoint", matcher="superglue", superpoint_weights=sp_weights,
             superglue_weights="structured", max_keypoints=1024, focal_px=614.4,
             rng_seed=args.rng_seed)
-        launches, res, t, summary = phase_learned(dev, tmp, scene, imgs, learned_cfg)
+        launches, res, t, summary, learned_run = phase_learned(dev, tmp, scene, imgs,
+                                                               learned_cfg)
         kernels.append({"name": "sinkhorn", "route": "cuda",
                         "source": "reconstructor_tpu_torch/" + cuda_sinkhorn.SOURCE,
                         "replaces": cuda_sinkhorn.REPLACES, "launches": launches,
@@ -1747,9 +2049,10 @@ def main(argv=None) -> int:
         phase_profile(dev, tmp, imgs, args.rng_seed)
         orb_cfg = ReconstructorConfig(detector="orb", rng_seed=args.rng_seed)
         phase_orb(dev, tmp, scene, imgs, orb_cfg)
-        phase_pcg_path(dev, tmp, scene, imgs,
-                       ReconstructorConfig(ba_solver="pcg", rng_seed=args.rng_seed))
+        pcg_cfg = ReconstructorConfig(ba_solver="pcg", rng_seed=args.rng_seed)
+        _, pcg_run = phase_pcg_path(dev, tmp, scene, imgs, pcg_cfg)
         phase_pcg_street(dev, ReconstructorConfig(rng_seed=args.rng_seed))
+        phase_mesh(dev, tmp, here, scene, imgs, pcg_cfg, pcg_run, learned_run)
         phase_resume(dev, tmp, scene, imgs, orb_cfg.with_(checkpoint_every_views=3))
         phase_ate(tmp, scene, e2e_state, e2e_ate)
     log("done", f"total {time.perf_counter() - T0:.1f}s")

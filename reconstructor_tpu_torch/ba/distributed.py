@@ -1,7 +1,8 @@
-"""Bundle adjustment with implicit-Schur PCG linear solves, on one device.
+"""Bundle adjustment with implicit-Schur PCG linear solves, on one device
+or with the observation axis sharded over the ranks of a mesh.
 
-The PyTorch counterpart of ``reconstructor_tpu.ba.distributed.solve_pcg``:
-the large-scene solver the driver takes when the dense coupling of
+The PyTorch counterpart of ``reconstructor_tpu.ba.distributed``.
+``solve_pcg`` is the large-scene solver the driver takes when the dense coupling of
 ``ba.lm`` would pass ``ba_dense_w_max_elems`` (or with
 ``ba_solver="pcg"``). The reduced camera system S = Hcc - W Hpp^-1 W^T is
 never formed: LM solves it with block-Jacobi preconditioned CG whose
@@ -12,7 +13,8 @@ per-observation coupling Y_o = Jc_o^T Jp_o. Memory is O(C + L + O).
 - Every sum over observations is an ``index_add_`` over ``obs_cam`` /
   ``obs_pt`` (the JAX package's ``segment_sum``): each observation counts,
   also a second one of the same (camera, landmark). On the card these are
-  float atomics, so a solve repeats to the last bits only on the CPU.
+  float atomics, so a solve repeats to the last bits only on the CPU, or
+  under ``torch.use_deterministic_algorithms``.
 - The CG early exit is a frozen-state flag: once ||r|| <= tol ||rhs||,
   x, r and p stop changing, which gives the early exit's x. The host reads
   the flag every ``_CG_CHECK`` iterations to stop the loop.
@@ -20,20 +22,38 @@ per-observation coupling Y_o = Jc_o^T Jp_o. Memory is O(C + L + O).
   to ``max_retries`` damped trials, lambda and the cost on the host in
   float32, one host read per trial.
 
-The multi-device solve (``solve_distributed``, the sharded problem) is not
-part of this package yet.
+``solve_distributed`` runs the same LM loop over a mesh
+(``parallel.mesh``): each rank holds a contiguous slice of the
+observations (``shard_problem``) and the whole camera and point state.
+Every sum over observations is a partial sum on each rank that one
+``all_reduce`` completes, through the loop's one reduce hook: g_c, g_p,
+H_cc and H_pp once per outer iteration (one call), W^T u and W z in every
+CG iteration (two calls, of (L, 3) and (C, 12)), W Hpp^-1 g_p for the
+rhs, W^T d for the point step, and every cost. The per-observation
+coupling Y stays on its rank. Every vector of the CG and every decision
+(accept, lambda, the frozen flag, the end) is then computed from reduced
+values, the same on every rank, so every rank makes the same collective
+calls and ends with the same state. On one device the hook does nothing.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from reconstructor_tpu_torch.ba import lm as ba_lm
+from reconstructor_tpu_torch.parallel.mesh import Mesh, all_sum, replicate, shard_rows
 
 # CG iterations between host reads of the converged flag (the flag, not
 # this period, decides x)
 _CG_CHECK = 16
+
+
+def _local(*sums):
+    """The reduce hook of one device: the partial sums are the sums."""
+    return sums
 
 
 def _seg_sum(values: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
@@ -97,9 +117,11 @@ def _pcg(matvec, rhs: torch.Tensor, precond, num_iters: int, tol: float) -> torc
     return x
 
 
-def _build_pcg_blocks(prob: ba_lm.BAProblem, cam, pts, huber_delta: float = 0.0):
+def _build_pcg_blocks(prob: ba_lm.BAProblem, cam, pts, huber_delta: float = 0.0,
+                      reduce=_local):
     """Damping-independent blocks for the implicit-Schur path (built once
-    per outer LM iteration; lambda retries reuse them)."""
+    per outer LM iteration; lambda retries reuse them). ``reduce`` sums
+    the four over the ranks; Y stays local."""
     C = cam.shape[0]
     L = pts.shape[0]
     res, Jc, Jp = _build_blocks(prob, cam, pts, huber_delta)
@@ -107,12 +129,13 @@ def _build_pcg_blocks(prob: ba_lm.BAProblem, cam, pts, huber_delta: float = 0.0)
     g_p = _seg_sum(torch.einsum("ori,or->oi", Jp, res), prob.obs_pt, L)
     H_cc = _seg_sum(torch.einsum("ori,orj->oij", Jc, Jc), prob.obs_cam, C)
     H_pp = _seg_sum(torch.einsum("ori,orj->oij", Jp, Jp), prob.obs_pt, L)
+    g_c, g_p, H_cc, H_pp = reduce(g_c, g_p, H_cc, H_pp)
     Y = torch.einsum("ori,orj->oij", Jc, Jp)                            # (O, 12, 3)
     return g_c, g_p, H_cc, H_pp, Y
 
 
 def _lm_step_pcg(prob: ba_lm.BAProblem, blocks, lam, cg_iters: int, cg_tol: float,
-                 damping: str = "levenberg"):
+                 damping: str = "levenberg", reduce=_local):
     """One damped implicit-Schur PCG solve from prebuilt blocks; ``lam``
     is a float32 scalar. Returns (d_cam (C, 12), d_pt (L, 3))."""
     g_c, g_p, H_cc, H_pp, Y = blocks
@@ -137,15 +160,15 @@ def _lm_step_pcg(prob: ba_lm.BAProblem, blocks, lam, cg_iters: int, cg_tol: floa
     def schur_matvec(u_flat):
         u = u_flat.reshape(C, 12)
         Ytu = torch.einsum("oij,oi->oj", Y, u[cam_o])                   # (O, 3)
-        WtU = _seg_sum(Ytu, pt_o, L)                                    # (L, 3)
+        (WtU,) = reduce(_seg_sum(Ytu, pt_o, L))                         # (L, 3)
         z = torch.einsum("lij,lj->li", H_pp_inv, WtU)
-        Wz = _seg_sum(torch.einsum("oij,oj->oi", Y, z[pt_o]), cam_o, C)  # (C, 12)
+        (Wz,) = reduce(_seg_sum(torch.einsum("oij,oj->oi", Y, z[pt_o]), cam_o, C))  # (C, 12)
         Hu = torch.einsum("cij,cj->ci", H_cc, u)
         return (Hu - Wz).reshape(-1)
 
     # W Hpp^-1 g_p for the reduced rhs
     zg = torch.einsum("lij,lj->li", H_pp_inv, g_p)
-    Wzg = _seg_sum(torch.einsum("oij,oj->oi", Y, zg[pt_o]), cam_o, C)
+    (Wzg,) = reduce(_seg_sum(torch.einsum("oij,oj->oi", Y, zg[pt_o]), cam_o, C))
     rhs = -(g_c - Wzg).reshape(-1)
 
     H_cc_inv = torch.linalg.inv(H_cc)                                   # block-Jacobi
@@ -155,7 +178,7 @@ def _lm_step_pcg(prob: ba_lm.BAProblem, blocks, lam, cg_iters: int, cg_tol: floa
 
     d_cam = _pcg(schur_matvec, rhs, precond, cg_iters, cg_tol).reshape(C, 12)
 
-    WtD = _seg_sum(torch.einsum("oij,oi->oj", Y, d_cam[cam_o]), pt_o, L)
+    (WtD,) = reduce(_seg_sum(torch.einsum("oij,oi->oj", Y, d_cam[cam_o]), pt_o, L))
     d_pt = -torch.einsum("lij,lj->li", H_pp_inv, g_p + WtD)
     return d_cam * prob.cam_free, d_pt
 
@@ -166,20 +189,23 @@ def solve_pcg(prob: ba_lm.BAProblem, max_iters: int = 50,
               cg_iters: int = 64, cg_tol: float = 1e-6,
               focal_upper_bound: float = 1000.0,
               max_retries: int = 5, huber_delta: float = 0.0,
-              damping: str = "marquardt") -> ba_lm.BAResult:
+              damping: str = "marquardt", reduce=None) -> ba_lm.BAResult:
     """LM with implicit-Schur PCG linear solves, on the problem's device.
 
     Same two-level structure as ``ba.lm.solve``: blocks once per outer
     iteration, damping retries re-run only the PCG solve. An outer
     iteration whose retries all fail only inflates lambda; the loop ends at
     convergence (relative cost drop under ``ftol``), lambda above 1e10 or
-    ``max_iters``.
+    ``max_iters``. ``reduce``: the hook that sums per-observation partial
+    sums over the ranks (``solve_distributed`` passes it); ``None`` on
+    one device.
     """
+    reduce = reduce or _local
     prob = prob._replace(obs_cam=prob.obs_cam.long(), obs_pt=prob.obs_pt.long())
     maskO = prob.obs_mask.to(prob.cam_params.dtype)
 
     def cost_of(cam, pts):
-        return ba_lm._cost(prob, cam, pts, maskO, huber_delta)
+        return reduce(ba_lm._cost(prob, cam, pts, maskO, huber_delta))[0]
 
     f32 = np.float32
     cam, pts = prob.cam_params, prob.points
@@ -189,11 +215,11 @@ def solve_pcg(prob: ba_lm.BAProblem, max_iters: int = 50,
     lam = f32(init_lambda)
     it = 0
     while it < max_iters:
-        blocks = _build_pcg_blocks(prob, cam, pts, huber_delta)
+        blocks = _build_pcg_blocks(prob, cam, pts, huber_delta, reduce)
         lam_i = lam
         accepted = False
         for _ in range(max_retries):
-            d_cam, d_pt = _lm_step_pcg(prob, blocks, lam_i, cg_iters, cg_tol, damping)
+            d_cam, d_pt = _lm_step_pcg(prob, blocks, lam_i, cg_iters, cg_tol, damping, reduce)
             cam_new = cam + d_cam
             cam_new[:, 6:8] = torch.clamp(cam_new[:, 6:8], max=focal_upper_bound)
             pts_new = pts + d_pt
@@ -217,3 +243,28 @@ def solve_pcg(prob: ba_lm.BAProblem, max_iters: int = 50,
             break
     return ba_lm.BAResult(cam_params=cam, points=pts, cost_initial=cost0,
                           cost_final=cost, iterations=it)
+
+
+def shard_problem(mesh: Mesh, prob: ba_lm.BAProblem) -> ba_lm.BAProblem:
+    """This rank's part of a BA problem on its device: a contiguous slice
+    of the observation axis, padded to a multiple of the world size with
+    masked slots; cameras, points and ``cam_free`` whole."""
+    n_pad = -(-prob.obs_uv.shape[0] // mesh.size) * mesh.size
+
+    def obs(x):
+        return shard_rows(mesh, replicate(mesh, x), n_pad)
+    return ba_lm.BAProblem(
+        cam_params=replicate(mesh, prob.cam_params),
+        points=replicate(mesh, prob.points),
+        obs_cam=obs(prob.obs_cam), obs_pt=obs(prob.obs_pt), obs_uv=obs(prob.obs_uv),
+        obs_mask=obs(prob.obs_mask),
+        cam_free=replicate(mesh, prob.cam_free))
+
+
+def solve_distributed(mesh: Mesh, prob: ba_lm.BAProblem, **kwargs) -> ba_lm.BAResult:
+    """``solve_pcg`` with the observation axis sharded over the mesh and
+    every sum over observations summed across the ranks (``all_sum``).
+    Every rank passes the same global problem and gets the same result.
+    ``kwargs`` are ``solve_pcg``'s."""
+    return solve_pcg(shard_problem(mesh, prob), reduce=functools.partial(all_sum, mesh),
+                     **kwargs)

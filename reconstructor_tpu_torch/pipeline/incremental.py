@@ -25,6 +25,11 @@ device:
 - BA: dense Schur-complement LM (ba.lm), or the implicit-Schur PCG
   solver (ba.distributed) where the dense coupling would pass
   ``ba_dense_w_max_elems`` or with ``ba_solver="pcg"``;
+- with a mesh (parallel.mesh): every rank runs this loop; the
+  matching chunks shard their pairs over the ranks (parallel.sharding,
+  whose matchers run over a world of one without a mesh) and every BA runs the
+  observation-sharded PCG solver (``solve_distributed``), so every rank
+  holds the same state; only rank 0 writes files;
 - checkpoints: with ``checkpoint_path`` the state autosaves after the
   initial pair, every ``checkpoint_every_views`` registrations and at the
   end (pipeline.checkpoint), and ``resume`` continues from such a file.
@@ -54,7 +59,8 @@ from reconstructor_tpu_torch.geometry import camera as cam
 from reconstructor_tpu_torch.geometry import epipolar, np_ops, pnp, se3, triangulation
 from reconstructor_tpu_torch.io import images as io_images
 from reconstructor_tpu_torch.io import ply
-from reconstructor_tpu_torch.matching import cuda_knn, gated, knn, pairs as pairing, superglue
+from reconstructor_tpu_torch.matching import gated, knn, pairs as pairing, superglue
+from reconstructor_tpu_torch.parallel import mesh as pmesh, sharding
 from reconstructor_tpu_torch.pipeline import checkpoint
 from reconstructor_tpu_torch.pipeline.state import ReconstructionState, MAX_VIEWS_PER_LANDMARK
 from reconstructor_tpu_torch.utils import device as devices
@@ -104,11 +110,19 @@ class IncrementalReconstructor:
     ``device``: where every stage runs — ``cuda`` unless given (the tests
     pass ``"cpu"``). Detectors ``sift``, ``orb`` and ``superpoint``,
     matchers ``knn`` and ``superglue``, dense-Schur or implicit-Schur PCG
-    bundle adjustment on one device.
+    bundle adjustment.
+
+    ``mesh``: an optional ``parallel.mesh.Mesh``. Matching always runs
+    the sharded matchers (``match_and_gate_sharded``,
+    ``match_all_pairs_sharded``, ``match_superglue_sharded``), over a
+    world of one without a mesh. With a mesh the device is the mesh's (a
+    different ``device`` raises), each chunk's pairs shard over the ranks
+    and every bundle adjustment runs ``ba.distributed.solve_distributed``,
+    also under the dense budget. Every rank must run the same calls.
     """
 
     def __init__(self, config: Optional[ReconstructorConfig] = None,
-                 verbose: bool = True, device=None):
+                 verbose: bool = True, device=None, mesh: Optional[pmesh.Mesh] = None):
         self.config = config or ReconstructorConfig()
         cfg = self.config
         for name, value, known in (("detector", cfg.detector, ("sift", "orb", "superpoint")),
@@ -117,7 +131,16 @@ class IncrementalReconstructor:
             if value not in known:
                 raise ValueError(f"unknown {name} {value!r} (one of {', '.join(known)})")
         self.verbose = verbose
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and devices.resolve(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
         self.device = devices.resolve(device)
+        # the matchers shard over this; without a mesh it is the world of one
+        self._shards = mesh or pmesh.world_of_one(self.device)
+        # ranks of a mesh hold the same state; one writes it
+        self._writes = self._shards.rank == 0
         self.timer = TimeLogger()
         self._gen = devices.generator(self.device, cfg.rng_seed)
 
@@ -177,6 +200,8 @@ class IncrementalReconstructor:
         ``checkpoint_every_views`` registrations, after the last one and
         at the end."""
         resuming = bool(state.registered)
+        if not self._writes:
+            out_folder = checkpoint_path = None
         if out_folder and not resuming:
             # clear previous run artifacts (deleteDirectoryContents parity,
             # SequentialReconstructor.cpp:984-985) — only dirs we own
@@ -447,8 +472,12 @@ class IncrementalReconstructor:
         the chunk is up to ``match_chunk_pairs_fused`` pairs through the
         CUDA top-2 kernel with ``knn_compute_dtype`` descriptors; on the
         CPU it is ``match_chunk_pairs`` through the plain matcher in
-        float32 (the TPU package's platform rule). A chunk holds only real
-        pairs: the last one is shorter, not padded. With
+        float32 (the TPU package's platform rule), rounded up to a multiple
+        of the world size. The chunk goes through the sharded matchers
+        (``parallel.sharding``), over the mesh or a world of one. A chunk
+        holds only real pairs: the last one is shorter, not padded (the
+        sharded matchers pad their slices themselves, and draw the F-gate's
+        draws for real pairs only). With
         ``matcher="superglue"`` the pairs go through ``_match_superglue``
         and then, with filter=True, the gate of ``_filter_matches``."""
         cfg = self.config
@@ -467,16 +496,17 @@ class IncrementalReconstructor:
         on_card = self.device.type == "cuda"
         compute_dtype = cfg.knn_compute_dtype if on_card else "float32"
         B = cfg.match_chunk_pairs_fused if on_card else cfg.match_chunk_pairs
+        B = -(-B // self._shards.size) * self._shards.size
         P = pair_idx.shape[0]
         K = state.max_keypoints
         n = min(K, Kt)
         results = []
         for s0 in range(0, P, B):
             e = min(s0 + B, P)
-            chunk_d = self._t(np.ascontiguousarray(pair_idx[s0:e], dtype=np.int32))
+            chunk = np.ascontiguousarray(pair_idx[s0:e], dtype=np.int32)
             if filter:
-                out = gated.match_and_gate(
-                    desc_d, mask_d, xy_d, chunk_d,
+                out = sharding.match_and_gate_sharded(
+                    self._shards, desc_d, mask_d, xy_d, chunk,
                     ratio_thresh=cfg.ratio_thresh, cross_check=cfg.cross_check,
                     use_fused=on_card,
                     num_hypotheses=cfg.fundamental_num_hypotheses,
@@ -484,9 +514,9 @@ class IncrementalReconstructor:
                     min_matches=cfg.min_matches_for_filter,
                     compute_dtype=compute_dtype, generator=self._gen)
             else:
-                match_fn = cuda_knn.match_all_pairs_fused if on_card else knn.match_all_pairs
-                mi, mm = match_fn(desc_d, mask_d, chunk_d, ratio_thresh=cfg.ratio_thresh,
-                                  cross_check=cfg.cross_check, compute_dtype=compute_dtype)
+                mi, mm = sharding.match_all_pairs_sharded(
+                    self._shards, desc_d, mask_d, chunk, ratio_thresh=cfg.ratio_thresh,
+                    cross_check=cfg.cross_check, use_fused=on_card, compute_dtype=compute_dtype)
                 out = (torch.where(mm, mi, -1), mm.sum(1))
             results.append((s0, e, out))
         for s0, e, (mi, cnt) in results:
@@ -503,9 +533,11 @@ class IncrementalReconstructor:
         """SuperGlue over every pair (FeatureMatcherSuperglue parity:
         +-0.7 coordinate normalisation, score > 0.5 gate), at the full
         ``max_keypoints`` width, in chunks of ``superglue_chunk_pairs``
-        real pairs (the last one shorter). On the card the Sinkhorn step
-        is the CUDA kernel, on the CPU the plain loop (the TPU package's
-        rule ``platform not in ("cpu",)``). Returns (match_idx (P, K),
+        real pairs (the last one shorter; rounded up to a multiple of the
+        world size), through ``match_superglue_sharded`` over the mesh or a
+        world of one. On the card the Sinkhorn step is the CUDA kernel, on
+        the CPU the plain loop (the TPU package's rule ``platform not in
+        ("cpu",)``). Returns (match_idx (P, K),
         match_mask (P, K)) as numpy."""
         cfg = self.config
         net = self._superglue_params()
@@ -514,13 +546,13 @@ class IncrementalReconstructor:
         desc, xy = self._t(state.desc), self._t(state.xy)
         score, kmask = self._t(state.kp_score), self._t(state.kp_mask)
         shapes = self._t(state.shapes)
-        B = cfg.superglue_chunk_pairs
+        B = -(-cfg.superglue_chunk_pairs // self._shards.size) * self._shards.size
         results = []
         for s0 in range(0, P, B):
             e = min(s0 + B, P)
-            chunk = self._t(np.ascontiguousarray(pair_idx[s0:e], dtype=np.int32))
-            idx, ok, _ = superglue.match_pairs_batched(
-                net, desc, xy, score, kmask, shapes, chunk,
+            chunk = np.ascontiguousarray(pair_idx[s0:e], dtype=np.int32)
+            idx, ok, _ = sharding.match_superglue_sharded(
+                self._shards, net, desc, xy, score, kmask, shapes, chunk,
                 sinkhorn_iters=cfg.superglue_sinkhorn_iters,
                 score_thresh=cfg.superglue_score_thresh)
             results.append((s0, e, idx, ok))
@@ -955,8 +987,11 @@ class IncrementalReconstructor:
                       ftol=cfg.ba_ftol, focal_upper_bound=cfg.ba_focal_upper_bound,
                       huber_delta=cfg.ba_huber_delta, damping=cfg.ba_damping)
         # the dense coupling W is (C*12, L*3): past the element budget the
-        # implicit-Schur PCG solver (no W, sums over observations) runs
-        if uses_pcg(cfg, C_pad, L_pad):
+        # implicit-Schur PCG solver (no W, sums over observations) runs;
+        # over a mesh it always does, its observations sharded
+        if self.mesh is not None:
+            result = distributed.solve_distributed(self.mesh, prob, **common)
+        elif uses_pcg(cfg, C_pad, L_pad):
             result = distributed.solve_pcg(prob, **common)
         else:
             result = ba_lm.solve(prob, compact=False, host_obs=(obs_pt, obs_cam_l, obs_mask),

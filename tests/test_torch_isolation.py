@@ -31,6 +31,8 @@ mods = [m.name for m in pkgutil.walk_packages(reconstructor_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke  # noqa: F401  (module import only)
+import torch.distributed as dist
+group_at_import = dist.is_initialized()
 from reconstructor_tpu_torch.config import ReconstructorConfig
 from reconstructor_tpu_torch.eval import render, synth
 from reconstructor_tpu_torch.io import images as io_images
@@ -47,7 +49,8 @@ state = rec.reconstruct_from_state(rec.detect_features_from_images(imgs))
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "reconstructor_tpu", "PIL")
                 and sys.modules[k] is not None)
-print(json.dumps({"modules": len(mods), "registered": len(state.registered),
+print(json.dumps({"modules": len(mods), "module_names": mods, "group_at_import": group_at_import,
+                  "registered": len(state.registered),
                   "landmarks": int(state.num_landmarks), "leaked": leaked,
                   "ate": synth.pose_ate(state.poses, sc["poses"])["ate_rmse_normalized"]}))
 """
@@ -143,6 +146,11 @@ def test_port_runs_without_jax_pil_or_the_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["modules"] >= 25
     assert res["leaked"] == []
+    # the multi-device modules import without JAX and join no process group
+    assert {"reconstructor_tpu_torch.parallel.mesh", "reconstructor_tpu_torch.parallel.sharding",
+            "reconstructor_tpu_torch.scripts.multiproc_worker",
+            "reconstructor_tpu_torch.scripts.run_multiproc_dryrun"} <= set(res["module_names"])
+    assert res["group_at_import"] is False
     # 5 rendered views, 256 keypoints: every view registers (measured
     # 5/5, 125 landmarks, 5.8% normalised ATE); bound the ATE at 15%
     assert res["registered"] == 5
