@@ -10,11 +10,13 @@ matvec is two sums over observations,
 u -> Hcc u - SUM_o Y_o Hpp^-1[pt_o] (Y_o^T u[cam_o]), with the
 per-observation coupling Y_o = Jc_o^T Jp_o. Memory is O(C + L + O).
 
-- Every sum over observations is an ``index_add_`` over ``obs_cam`` /
-  ``obs_pt`` (the JAX package's ``segment_sum``): each observation counts,
-  also a second one of the same (camera, landmark). On the card these are
-  float atomics, so a solve repeats to the last bits only on the CPU, or
-  under ``torch.use_deterministic_algorithms``.
+- Every sum over observations is a segment sum over ``obs_cam`` /
+  ``obs_pt`` (the JAX package's ``segment_sum``) through a layout of the
+  live observations built once per solve (``ba.cuda_segsum``): each
+  observation counts, also a second one of the same (camera, landmark).
+  On the card the sums are the fixed-order kernel ``ba/csrc/seg_sum.cu``
+  (no atomics), on the CPU ``index_add_`` in observation order, so a solve
+  repeats bit for bit on either device.
 - The CG early exit is a frozen-state flag: once ||r|| <= tol ||rhs||,
   x, r and p stop changing, which gives the early exit's x. The host reads
   the flag every ``_CG_CHECK`` iterations to stop the loop.
@@ -39,11 +41,12 @@ calls and ends with the same state. On one device the hook does nothing.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from reconstructor_tpu_torch.ba import lm as ba_lm
+from reconstructor_tpu_torch.ba import cuda_segsum, lm as ba_lm
 from reconstructor_tpu_torch.parallel.mesh import Mesh, all_sum, replicate, shard_rows
 
 # CG iterations between host reads of the converged flag (the flag, not
@@ -56,10 +59,16 @@ def _local(*sums):
     return sums
 
 
-def _seg_sum(values: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
-    """Sum of ``values`` rows into ``n`` segments (``jax.ops.segment_sum``)."""
-    out = torch.zeros((n,) + tuple(values.shape[1:]), dtype=values.dtype, device=values.device)
-    return out.index_add_(0, index, values)
+class _Layouts(NamedTuple):
+    """The segment layouts of one solve: observations by camera, by point."""
+    cam: cuda_segsum.SegmentLayout
+    pt: cuda_segsum.SegmentLayout
+
+
+def _layouts(prob: ba_lm.BAProblem) -> _Layouts:
+    C, L = prob.cam_params.shape[0], prob.points.shape[0]
+    return _Layouts(cuda_segsum.segment_layout(prob.obs_cam, C, prob.obs_mask),
+                    cuda_segsum.segment_layout(prob.obs_pt, L, prob.obs_mask))
 
 
 def _inv3x3(m: torch.Tensor) -> torch.Tensor:
@@ -117,30 +126,43 @@ def _pcg(matvec, rhs: torch.Tensor, precond, num_iters: int, tol: float) -> torc
     return x
 
 
-def _build_pcg_blocks(prob: ba_lm.BAProblem, cam, pts, huber_delta: float = 0.0,
-                      reduce=_local):
+def _build_pcg_blocks(prob: ba_lm.BAProblem, lay: _Layouts, cam, pts,
+                      huber_delta: float = 0.0, reduce=_local):
     """Damping-independent blocks for the implicit-Schur path (built once
     per outer LM iteration; lambda retries reuse them). ``reduce`` sums
     the four over the ranks; Y stays local."""
-    C = cam.shape[0]
-    L = pts.shape[0]
+    seg_sum = cuda_segsum.seg_sum
     res, Jc, Jp = _build_blocks(prob, cam, pts, huber_delta)
-    g_c = _seg_sum(torch.einsum("ori,or->oi", Jc, res), prob.obs_cam, C)
-    g_p = _seg_sum(torch.einsum("ori,or->oi", Jp, res), prob.obs_pt, L)
-    H_cc = _seg_sum(torch.einsum("ori,orj->oij", Jc, Jc), prob.obs_cam, C)
-    H_pp = _seg_sum(torch.einsum("ori,orj->oij", Jp, Jp), prob.obs_pt, L)
+    g_c = seg_sum(torch.einsum("ori,or->oi", Jc, res), lay.cam)
+    g_p = seg_sum(torch.einsum("ori,or->oi", Jp, res), lay.pt)
+    H_cc = seg_sum(torch.einsum("ori,orj->oij", Jc, Jc), lay.cam)
+    H_pp = seg_sum(torch.einsum("ori,orj->oij", Jp, Jp), lay.pt)
     g_c, g_p, H_cc, H_pp = reduce(g_c, g_p, H_cc, H_pp)
     Y = torch.einsum("ori,orj->oij", Jc, Jp)                            # (O, 12, 3)
     return g_c, g_p, H_cc, H_pp, Y
 
 
-def _lm_step_pcg(prob: ba_lm.BAProblem, blocks, lam, cg_iters: int, cg_tol: float,
-                 damping: str = "levenberg", reduce=_local):
+def _schur_matvec(prob: ba_lm.BAProblem, lay: _Layouts, Y, H_cc, H_pp_inv,
+                  u_flat: torch.Tensor, reduce=_local) -> torch.Tensor:
+    """S u = Hcc u - W Hpp^-1 W^T u without forming S: two sums over
+    observations (``reduce`` completes each over the ranks)."""
+    C = H_cc.shape[0]
+    u = u_flat.reshape(C, 12)
+    Ytu = torch.einsum("oij,oi->oj", Y, u[prob.obs_cam])                # (O, 3)
+    (WtU,) = reduce(cuda_segsum.seg_sum(Ytu, lay.pt))                   # (L, 3)
+    z = torch.einsum("lij,lj->li", H_pp_inv, WtU)
+    (Wz,) = reduce(cuda_segsum.seg_sum(torch.einsum("oij,oj->oi", Y, z[prob.obs_pt]),
+                                       lay.cam))                        # (C, 12)
+    Hu = torch.einsum("cij,cj->ci", H_cc, u)
+    return (Hu - Wz).reshape(-1)
+
+
+def _lm_step_pcg(prob: ba_lm.BAProblem, lay: _Layouts, blocks, lam, cg_iters: int,
+                 cg_tol: float, damping: str = "levenberg", reduce=_local):
     """One damped implicit-Schur PCG solve from prebuilt blocks; ``lam``
     is a float32 scalar. Returns (d_cam (C, 12), d_pt (L, 3))."""
     g_c, g_p, H_cc, H_pp, Y = blocks
     C = g_c.shape[0]
-    L = g_p.shape[0]
     dtype, dev = g_c.dtype, g_c.device
     eye12 = torch.eye(12, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
@@ -156,19 +178,13 @@ def _lm_step_pcg(prob: ba_lm.BAProblem, blocks, lam, cg_iters: int, cg_tol: floa
         H_pp = H_pp + float(np.float32(lam) + np.float32(1e-8)) * eye3
     H_pp_inv = _inv3x3(H_pp)                                            # (L, 3, 3)
     cam_o, pt_o = prob.obs_cam, prob.obs_pt
-
-    def schur_matvec(u_flat):
-        u = u_flat.reshape(C, 12)
-        Ytu = torch.einsum("oij,oi->oj", Y, u[cam_o])                   # (O, 3)
-        (WtU,) = reduce(_seg_sum(Ytu, pt_o, L))                         # (L, 3)
-        z = torch.einsum("lij,lj->li", H_pp_inv, WtU)
-        (Wz,) = reduce(_seg_sum(torch.einsum("oij,oj->oi", Y, z[pt_o]), cam_o, C))  # (C, 12)
-        Hu = torch.einsum("cij,cj->ci", H_cc, u)
-        return (Hu - Wz).reshape(-1)
+    seg_sum = cuda_segsum.seg_sum
+    schur_matvec = functools.partial(_schur_matvec, prob, lay, Y, H_cc, H_pp_inv,
+                                     reduce=reduce)
 
     # W Hpp^-1 g_p for the reduced rhs
     zg = torch.einsum("lij,lj->li", H_pp_inv, g_p)
-    (Wzg,) = reduce(_seg_sum(torch.einsum("oij,oj->oi", Y, zg[pt_o]), cam_o, C))
+    (Wzg,) = reduce(seg_sum(torch.einsum("oij,oj->oi", Y, zg[pt_o]), lay.cam))
     rhs = -(g_c - Wzg).reshape(-1)
 
     H_cc_inv = torch.linalg.inv(H_cc)                                   # block-Jacobi
@@ -178,7 +194,7 @@ def _lm_step_pcg(prob: ba_lm.BAProblem, blocks, lam, cg_iters: int, cg_tol: floa
 
     d_cam = _pcg(schur_matvec, rhs, precond, cg_iters, cg_tol).reshape(C, 12)
 
-    (WtD,) = reduce(_seg_sum(torch.einsum("oij,oi->oj", Y, d_cam[cam_o]), pt_o, L))
+    (WtD,) = reduce(seg_sum(torch.einsum("oij,oi->oj", Y, d_cam[cam_o]), lay.pt))
     d_pt = -torch.einsum("lij,lj->li", H_pp_inv, g_p + WtD)
     return d_cam * prob.cam_free, d_pt
 
@@ -196,12 +212,15 @@ def solve_pcg(prob: ba_lm.BAProblem, max_iters: int = 50,
     iteration, damping retries re-run only the PCG solve. An outer
     iteration whose retries all fail only inflates lambda; the loop ends at
     convergence (relative cost drop under ``ftol``), lambda above 1e10 or
-    ``max_iters``. ``reduce``: the hook that sums per-observation partial
-    sums over the ranks (``solve_distributed`` passes it); ``None`` on
-    one device.
+    ``max_iters``. ``cost_trace`` holds the cost after each outer
+    iteration, padded with the final cost (a CPU tensor: the loop reads
+    each cost on the host anyway). ``reduce``: the hook that sums
+    per-observation partial sums over the ranks (``solve_distributed``
+    passes it); ``None`` on one device.
     """
     reduce = reduce or _local
     prob = prob._replace(obs_cam=prob.obs_cam.long(), obs_pt=prob.obs_pt.long())
+    lay = _layouts(prob)
     maskO = prob.obs_mask.to(prob.cam_params.dtype)
 
     def cost_of(cam, pts):
@@ -213,13 +232,15 @@ def solve_pcg(prob: ba_lm.BAProblem, max_iters: int = 50,
     cost = cost0
     cost_h = f32(cost0.item())
     lam = f32(init_lambda)
+    trace = []
     it = 0
     while it < max_iters:
-        blocks = _build_pcg_blocks(prob, cam, pts, huber_delta, reduce)
+        blocks = _build_pcg_blocks(prob, lay, cam, pts, huber_delta, reduce)
         lam_i = lam
         accepted = False
         for _ in range(max_retries):
-            d_cam, d_pt = _lm_step_pcg(prob, blocks, lam_i, cg_iters, cg_tol, damping, reduce)
+            d_cam, d_pt = _lm_step_pcg(prob, lay, blocks, lam_i, cg_iters, cg_tol, damping,
+                                       reduce)
             cam_new = cam + d_cam
             cam_new[:, 6:8] = torch.clamp(cam_new[:, 6:8], max=focal_upper_bound)
             pts_new = pts + d_pt
@@ -239,10 +260,13 @@ def solve_pcg(prob: ba_lm.BAProblem, max_iters: int = 50,
                 break
         else:
             lam = lam_i
+        trace.append(cost_h)
         if lam > 1e10:
             break
+    trace += [cost_h] * (max_iters - len(trace))
     return ba_lm.BAResult(cam_params=cam, points=pts, cost_initial=cost0,
-                          cost_final=cost, iterations=it)
+                          cost_final=cost, iterations=it,
+                          cost_trace=torch.tensor(np.asarray(trace, np.float32)))
 
 
 def shard_problem(mesh: Mesh, prob: ba_lm.BAProblem) -> ba_lm.BAProblem:

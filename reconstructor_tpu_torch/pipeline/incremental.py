@@ -143,6 +143,9 @@ class IncrementalReconstructor:
         self._writes = self._shards.rank == 0
         self.timer = TimeLogger()
         self._gen = devices.generator(self.device, cfg.rng_seed)
+        # bundle adjustments per solver: ba.lm.solve, ba.distributed.solve_pcg
+        # and solve_distributed (which route ran)
+        self.ba_calls = {"dense": 0, "pcg": 0, "distributed": 0}
 
     def _log(self, *args):
         if self.verbose:
@@ -990,10 +993,13 @@ class IncrementalReconstructor:
         # implicit-Schur PCG solver (no W, sums over observations) runs;
         # over a mesh it always does, its observations sharded
         if self.mesh is not None:
+            self.ba_calls["distributed"] += 1
             result = distributed.solve_distributed(self.mesh, prob, **common)
         elif uses_pcg(cfg, C_pad, L_pad):
+            self.ba_calls["pcg"] += 1
             result = distributed.solve_pcg(prob, **common)
         else:
+            self.ba_calls["dense"] += 1
             result = ba_lm.solve(prob, compact=False, host_obs=(obs_pt, obs_cam_l, obs_mask),
                                  **common)
         self._log(f"BA: cost {float(result.cost_initial):.1f} -> "

@@ -150,6 +150,12 @@ def test_port_runs_without_jax_pil_or_the_jax_package():
     assert {"reconstructor_tpu_torch.parallel.mesh", "reconstructor_tpu_torch.parallel.sharding",
             "reconstructor_tpu_torch.scripts.multiproc_worker",
             "reconstructor_tpu_torch.scripts.run_multiproc_dryrun"} <= set(res["module_names"])
+    # the fixed-order segment sums and the stress and BA scripts too
+    assert {"reconstructor_tpu_torch.ba.cuda_segsum",
+            "reconstructor_tpu_torch.scripts.stress_synth",
+            "reconstructor_tpu_torch.scripts.stress_report",
+            "reconstructor_tpu_torch.scripts.exp_ba", "reconstructor_tpu_torch.scripts.profile_ba",
+            "reconstructor_tpu_torch.scripts.profile_ba_latency"} <= set(res["module_names"])
     assert res["group_at_import"] is False
     # 5 rendered views, 256 keypoints: every view registers (measured
     # 5/5, 125 landmarks, 5.8% normalised ATE); bound the ATE at 15%
