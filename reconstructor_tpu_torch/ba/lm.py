@@ -25,6 +25,12 @@ and the same solver as ``reconstructor_tpu.ba.lm.solve``:
   intrinsics policy) zeroes Jacobian columns.
 - The LM loop runs on the device; the host reads one flag per iteration
   to stop at convergence.
+- ``block_dtype`` rounds the coupling W and/or the camera Hessian's
+  per-observation blocks to bfloat16 (sums stay float32), and
+  ``schur_precision`` sets how the three W-sized products are computed on
+  the card: a float32 pass with TF32 off (``'highest'`` and ``'high'``)
+  or one pass on bf16-rounded operands (``'default'``). On the CPU all
+  three are plain float32 products, as XLA:CPU computes them.
 
 Parameter layout per camera (12): [aa(3), t(3), fx, fy, cx, cy, k1, k2]
 (extrinsics packing of BundleAdjuster.cpp:52-57, intrinsics of :38-43).
@@ -36,6 +42,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+SCHUR_PRECISIONS = ("highest", "high", "default")
 
 
 class BAProblem(NamedTuple):
@@ -251,10 +259,18 @@ def _cost(prob: BAProblem, cam, pts, maskO, huber_delta: float) -> torch.Tensor:
     return 0.5 * torch.sum(_huber(torch.sum(res * res, dim=-1), huber_delta))
 
 
-def _normal_blocks(prob: BAProblem, lay: _Layout, cam, pts, huber_delta: float):
+def _normal_blocks(prob: BAProblem, lay: _Layout, cam, pts, huber_delta: float,
+                   block_dtype: str = "float32"):
     """Damping-independent normal-equation pieces, built once per outer
     LM iteration: g_c (C,12), g_p (3,L), H_cc (C,12,12), H_pp (9,L) and
-    the coupling W (C,12,3,L)."""
+    the coupling W (C,12,3,L).
+
+    ``block_dtype``: ``"bfloat16"`` or ``"w16"`` round the per-observation
+    coupling blocks to bfloat16 before the gather (W is then bfloat16),
+    ``"bfloat16"`` or ``"hcc16"`` round the per-observation camera
+    Hessian blocks before the camera sum, which accumulates in float32;
+    any other value is float32, as in the JAX package. H_pp and g_p stay
+    float32."""
     camO = cam[prob.obs_cam]
     ptO = pts[prob.obs_pt]
     res = _resid(camO, ptO, prob.obs_uv) * lay.maskO[:, None]       # (O, 2)
@@ -273,9 +289,14 @@ def _normal_blocks(prob: BAProblem, lay: _Layout, cam, pts, huber_delta: float):
     L = pts.shape[0]
     jtr_c = torch.einsum("ori,or->oi", Jc, res)                     # (O, 12)
     hcc_o = torch.einsum("ori,orj->oij", Jc, Jc).reshape(O, 144)
+    if block_dtype in ("bfloat16", "hcc16"):
+        hcc_o = _round_bf16(hcc_o)
     g_c = lay.onehot.T @ jtr_c                                      # (C, 12)
     H_cc = (lay.onehot.T @ hcc_o).reshape(C, 12, 12)
     Y = torch.einsum("ori,orj->oij", Jc, Jp).reshape(O, 36)         # (O, 36)
+    w16 = block_dtype in ("bfloat16", "w16")
+    if w16:
+        Y = _round_bf16(Y)
     hpp_o = torch.einsum("ori,orj->oij", Jp, Jp).reshape(O, 9)
     gp_o = torch.einsum("ori,or->oi", Jp, res)                      # (O, 3)
     src = torch.cat([Y, hpp_o, gp_o], dim=1)                        # (O, 48)
@@ -289,7 +310,34 @@ def _normal_blocks(prob: BAProblem, lay: _Layout, cam, pts, huber_delta: float):
     else:
         W = src[lay.w_idx, :36].reshape(C, L, 12, 3).permute(0, 2, 3, 1)
         pt_sum = torch.sum(src[lay.p_idx, 36:] * lay.p_mask[..., None], dim=1)
+    if w16:
+        W = W.to(torch.bfloat16)        # exact: the values are bf16 already
     return g_c, pt_sum[:, 9:].T.contiguous(), H_cc, pt_sum[:, :9].T.contiguous(), W
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (nearest even) and held in float32."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def schur_mm(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """``a @ b`` in float32 for one of the Schur step's W-sized products.
+
+    bfloat16 operands (a bf16 ``block_dtype``) multiply exactly in float32
+    and accumulate there, whatever ``precision`` says. On the CPU every
+    precision is a plain float32 product, as XLA:CPU computes them. On the
+    card ``'highest'`` and ``'high'`` are float32 products with TF32 off
+    (3xTF32, the counterpart of the TPU's three bf16 passes, was no faster
+    on an H100 and took twice the memory; see ``PERF.md``) and
+    ``'default'`` rounds the operands to bfloat16 first: one bf16 pass
+    with float32 accumulation."""
+    if precision not in SCHUR_PRECISIONS:
+        raise ValueError(f"schur_precision must be one of {SCHUR_PRECISIONS}, "
+                         f"got {precision!r}")
+    a, b = a.float(), b.float()
+    if precision == "default" and a.device.type == "cuda":
+        a, b = _round_bf16(a), _round_bf16(b)
+    return a @ b
 
 
 def _inv3x3_soa(h9: torch.Tensor) -> torch.Tensor:
@@ -310,9 +358,14 @@ def _inv3x3_soa(h9: torch.Tensor) -> torch.Tensor:
     return torch.stack([A, B, Cc, D, E, F, G, H, I]) / det
 
 
-def _damped_schur_step(cam_free, blocks, lam, damping: str):
+def _damped_schur_step(cam_free, blocks, lam, damping: str, precision: str = "highest"):
     """Damped Schur-complement solve from prebuilt blocks:
-    returns (d_cam (C,12), d_pt (L,3), predicted_reduction)."""
+    returns (d_cam (C,12), d_pt (L,3), predicted_reduction).
+
+    ``precision`` is the three W-sized products' (``schur_mm``). A
+    bfloat16 W (``block_dtype``) takes Hpp^-1 in bfloat16, builds B = W
+    Hpp^-1 in bfloat16 and rounds g_p and the camera step to bfloat16 for
+    the products with W and B, as the JAX package does."""
     g_c, g_pL, H_cc, H_ppL, W = blocks
     C = g_c.shape[0]
     L = g_pL.shape[1]
@@ -332,23 +385,25 @@ def _damped_schur_step(cam_free, blocks, lam, damping: str):
     H_pp_d[diag3] = H_pp_d[diag3] + dp
     Hinv = _inv3x3_soa(H_pp_d).reshape(3, 3, L)
 
-    B = (W[:, :, 0, None, :] * Hinv[0][None, None]
-         + W[:, :, 1, None, :] * Hinv[1][None, None]
-         + W[:, :, 2, None, :] * Hinv[2][None, None])
+    wd = W.dtype
+    Hinv_w = Hinv.to(wd)
+    B = (W[:, :, 0, None, :] * Hinv_w[0][None, None]
+         + W[:, :, 1, None, :] * Hinv_w[1][None, None]
+         + W[:, :, 2, None, :] * Hinv_w[2][None, None])
     Wf = W.reshape(n, 3 * L)
     Bf = B.reshape(n, 3 * L)
-    S = -(Bf @ Wf.T)
+    S = -schur_mm(Bf, Wf.T, precision)
     ci = torch.arange(C, device=dev)
     S = S.reshape(C, 12, C, 12)
     S[ci, :, ci, :] = S[ci, :, ci, :] + H_cc_d
     S = S.reshape(n, n)
-    rhs = -(g_c.reshape(-1) - Bf @ g_pL.reshape(-1))
+    rhs = -(g_c.reshape(-1) - schur_mm(Bf, g_pL.reshape(-1).to(wd), precision))
     chol, info = torch.linalg.cholesky_ex(S)
     d_cam = torch.cholesky_solve(rhs[:, None], chol)[:, 0] * cam_free.reshape(-1)
     # a failed factorization gives a NaN step, whose cost the LM loop rejects
     d_cam = torch.where(info == 0, d_cam, float("nan"))
 
-    Wt_dc = (d_cam @ Wf).reshape(3, L)
+    Wt_dc = schur_mm(d_cam.to(wd), Wf, precision).reshape(3, L)
     t = g_pL + Wt_dc
     d_ptT = -(Hinv[:, 0] * t[0] + Hinv[:, 1] * t[1] + Hinv[:, 2] * t[2])
     pred = 0.5 * (torch.sum(d_cam * d_cam * dc.reshape(-1))
@@ -386,7 +441,8 @@ def _layout(prob: BAProblem, host_obs=None) -> _Layout:
 def _solve_core(prob: BAProblem, lay: _Layout, max_iters: int, init_lambda: float,
                 ftol: float, focal_upper_bound: float, max_retries: int,
                 huber_delta: float, damping: str, schedule: str,
-                lambda_up: float, lambda_down: float) -> BAResult:
+                lambda_up: float, lambda_down: float, block_dtype: str,
+                schur_precision: str) -> BAResult:
     dtype, dev = prob.cam_params.dtype, prob.cam_params.device
     prob = prob._replace(obs_cam=prob.obs_cam.long(), obs_pt=prob.obs_pt.long())
 
@@ -401,14 +457,15 @@ def _solve_core(prob: BAProblem, lay: _Layout, max_iters: int, init_lambda: floa
     two = torch.tensor(2.0, dtype=dtype, device=dev)
     it = 0
     while it < max_iters:
-        blocks = _normal_blocks(prob, lay, cam, pts, huber_delta)
+        blocks = _normal_blocks(prob, lay, cam, pts, huber_delta, block_dtype)
         lam_i, nu = lam, two
         accepted = torch.tensor(False, device=dev)
         best_cam, best_pts, best_cost, lam_next = cam, pts, cost, lam
         # fixed-budget damped trials; once one is accepted, later trials
         # leave the state as it is (the TPU package's retry while_loop)
         for _ in range(max_retries):
-            d_cam, d_pt, pred = _damped_schur_step(prob.cam_free, blocks, lam_i, damping)
+            d_cam, d_pt, pred = _damped_schur_step(prob.cam_free, blocks, lam_i, damping,
+                                                   schur_precision)
             cam_new = cam + d_cam
             cam_new = torch.cat([cam_new[:, :6],
                                  torch.clamp(cam_new[:, 6:8], max=focal_upper_bound),
@@ -453,7 +510,8 @@ def solve(prob: BAProblem, max_iters: int = 50, init_lambda: float = 1e-3,
           ftol: float = 1e-6, focal_upper_bound: float = 1000.0,
           max_retries: int = 1, huber_delta: float = 0.0,
           damping: str = "marquardt", schedule: str = "nielsen",
-          compact: bool = True, bucket_steps: int = 4,
+          compact: bool = True, block_dtype: str = "float32",
+          schur_precision: str = "high", bucket_steps: int = 4,
           host_obs=None) -> BAResult:
     """Run damped LM to convergence (or max_iters) on the problem's device.
 
@@ -468,11 +526,22 @@ def solve(prob: BAProblem, max_iters: int = 50, init_lambda: float = 1e-3,
     obs_mask) for the host-built gather tables of a problem that is
     already compact. ``ftol`` matches Ceres's function_tolerance default
     (1e-6), which the reference inherits (BundleAdjuster.cpp:131-142).
+
+    ``block_dtype`` (``"float32"``, ``"bfloat16"``, ``"w16"``,
+    ``"hcc16"``; see ``_normal_blocks``) sets the storage of the
+    Gauss-Newton blocks and ``schur_precision`` (``"highest"``,
+    ``"high"``, ``"default"``; see ``schur_mm``) the three W-sized
+    products of the Schur step, with the JAX package's names and
+    defaults. The JAX package keeps ``block_dtype="float32"`` (bf16
+    storage stalled its 100-camera problem) and runs ``"high"``, which it
+    found at converged-cost parity; ``scripts/check_ba_variants.py``
+    compares them.
     """
     kw = dict(max_iters=max_iters, init_lambda=init_lambda, ftol=ftol,
               focal_upper_bound=focal_upper_bound, max_retries=max_retries,
               huber_delta=huber_delta, damping=damping, schedule=schedule,
-              lambda_up=lambda_up, lambda_down=lambda_down)
+              lambda_up=lambda_up, lambda_down=lambda_down, block_dtype=block_dtype,
+              schur_precision=schur_precision)
     if not compact:
         return _solve_core(prob, _layout(prob, host_obs), **kw)
     cprob, used, used_cams, _ = compact_problem(prob, bucket_steps)

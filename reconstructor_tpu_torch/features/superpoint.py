@@ -16,7 +16,9 @@ packages' public functions compare like with like. Weights come from a
 seeded ``torch.Generator`` (``init_params``), the JAX package's npz files
 (``params_from_npz``, float16 storage upcast to float32), a magicleap
 state dict, or the JAX package's parameter pytree as numpy arrays
-(``from_jax_params``).
+(``from_jax_params``). ``to_jax_params`` and ``save_npz`` go the other
+way, to the pytree and to the npz layout that both packages'
+``params_from_npz`` load (``scripts/train_frontend.py`` writes it).
 """
 
 from __future__ import annotations
@@ -92,6 +94,27 @@ def from_jax_params(params: Mapping[str, Mapping[str, Any]]) -> SuperPointNet:
             conv.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
             conv.bias.copy_(torch.from_numpy(np.asarray(params[name]["b"], np.float32)))
     return net.eval().requires_grad_(False)
+
+
+def to_jax_params(net: SuperPointNet) -> Dict[str, Dict[str, np.ndarray]]:
+    """The module -> the JAX package's pytree ``{name: {"w": HWIO, "b":
+    (O,)}}`` of float32 numpy arrays (the inverse of ``from_jax_params``)."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for name in _ALL_NAMES:
+        conv = getattr(net, name)
+        w = conv.weight.detach().cpu().numpy().transpose(2, 3, 1, 0)   # OIHW->HWIO
+        out[name] = {"w": np.ascontiguousarray(w, np.float32),
+                     "b": conv.bias.detach().cpu().numpy().astype(np.float32)}
+    return out
+
+
+def save_npz(net: SuperPointNet, path: str) -> None:
+    """Write the weights as the flat ``name.key`` npz of float16 HWIO
+    kernels and biases that the JAX package's training script writes
+    (compressed); both packages' ``params_from_npz`` load it."""
+    flat = {f"{name}.{k}": v.astype(np.float16)
+            for name, layer in to_jax_params(net).items() for k, v in layer.items()}
+    np.savez_compressed(path, **flat)
 
 
 def params_from_npz(path: str) -> SuperPointNet:

@@ -21,6 +21,7 @@ from reconstructor_tpu_torch.geometry import se3
 
 # Matches the reference's hand-typed pi (SequentialReconstructor.cpp:833).
 _REF_PI = 3.1415
+EIGH_BATCH = 16384       # matrices per eigh call (see triangulate_batch)
 
 
 def dlt_rows(pose: torch.Tensor, intr: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
@@ -50,7 +51,11 @@ def triangulate_batch(poses: torch.Tensor, intrs: torch.Tensor, uvs: torch.Tenso
     # eigh raises on non-finite input where the JAX reference returns NaN:
     # solve a zero matrix there and hand back NaN points (gated invalid).
     bad = ~torch.isfinite(AtA).reshape(AtA.shape[0], -1).all(dim=-1)
-    _, vecs = torch.linalg.eigh(torch.where(bad[:, None, None], 0.0, AtA))
+    AtA = torch.where(bad[:, None, None], 0.0, AtA)
+    # cuSOLVER's batched eigensolver behind eigh on a card rejects large
+    # batches (CUSOLVER_STATUS_INVALID_VALUE on the 38,444 landmarks of a
+    # 70-view scene's retriangulation): solve them in slices
+    vecs = torch.cat([torch.linalg.eigh(m)[1] for m in torch.split(AtA, EIGH_BATCH)])
     h = vecs[..., :, 0]
     w = h[..., 3]
     w = torch.where(torch.abs(w) < 1e-12, torch.sign(w) * 1e-12 + 1e-12, w)

@@ -122,7 +122,7 @@ def profile(prob: ba_lm.BAProblem, tag: str, reps: int = 20) -> dict:
     lay = ba_lm._layout(prob, host)
     kw = dict(max_iters=SOLVE_ITERS, init_lambda=1e-3, ftol=0.0, focal_upper_bound=1000.0,
               max_retries=1, huber_delta=0.0, damping="marquardt", schedule="nielsen",
-              lambda_up=4.0, lambda_down=2.0)
+              lambda_up=4.0, lambda_down=2.0, block_dtype="float32", schur_precision="high")
 
     def lm_solve():
         return ba_lm._solve_core(prob, lay, **kw)
@@ -150,7 +150,7 @@ def profile(prob: ba_lm.BAProblem, tag: str, reps: int = 20) -> dict:
     blocks = ba_lm._normal_blocks(long, lay, cam, pts, 0.0)
     lam = torch.tensor(1e-3, dtype=cam.dtype, device=dev)
     ms["lm_damped_schur_step"] = timeit_(
-        lambda: ba_lm._damped_schur_step(prob.cam_free, blocks, lam, "marquardt"))
+        lambda: ba_lm._damped_schur_step(prob.cam_free, blocks, lam, "marquardt", "high"))
     ms["lm_cost"] = timeit_(lambda: ba_lm._cost(long, cam, pts, lay.maskO, 0.0))
 
     # PCG

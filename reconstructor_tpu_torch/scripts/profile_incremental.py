@@ -146,7 +146,7 @@ def profile(imgs: Sequence[io_images.LoadedImage], cfg: ReconstructorConfig,
         prof.disable()
         loop_s = time.perf_counter() - t0
     trace_path = os.path.join(out, profiling.TRACE_FILE) if trace else None
-    unmeasured = {"launches": None, "busy_s": None, "top_kernels": []}
+    unmeasured = {"launches": None, "busy_s": None, "launched_busy_s": None, "top_kernels": []}
     summary = (profiling.stage_summary(trace_path, STAGES) if trace
                else {name: unmeasured for name in STAGES + ("all",)})
     stages = {}
@@ -154,6 +154,7 @@ def profile(imgs: Sequence[io_images.LoadedImage], cfg: ReconstructorConfig,
         s = summary[name]
         stages[name] = {"wall_s": stage_t[name], "calls": calls[name],
                         "launches": s["launches"], "busy_s": s["busy_s"],
+                        "launched_busy_s": s["launched_busy_s"],
                         "busy_share": profiling.busy_share(s),
                         "top_kernels": s["top_kernels"]}
     report = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",

@@ -33,7 +33,16 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def run(n: int, backend: str, device: str, timeout: float) -> dict:
+def launch(n: int, worker: str, backend: str, device: str, timeout: float,
+           args=()) -> tuple:
+    """Start ``n`` ranks of the module ``worker`` (``python -m``) joined
+    through a ``FileStore`` in a fresh temporary directory, each with
+    ``LOCAL_RANK`` set, and wait for them. Every rank gets ``--init-method
+    --world-size --rank --backend --device --timeout --out`` and then
+    ``args``, and writes its JSON report to ``--out``. A rank that fails
+    or outlasts ``timeout`` + 60 s stops the others. Returns (the reports of
+    the ranks that exited 0 with one, in rank order; the exit codes; wall
+    seconds)."""
     tmp = tempfile.mkdtemp(prefix="multiproc_")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
@@ -44,10 +53,10 @@ def run(n: int, backend: str, device: str, timeout: float) -> dict:
             outs.append(os.path.join(tmp, f"rank{rank}.json"))
             logs.append(open(os.path.join(tmp, f"rank{rank}.log"), "w+"))
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "reconstructor_tpu_torch.scripts.multiproc_worker",
+                [sys.executable, "-m", worker,
                  "--init-method", f"file://{tmp}/store", "--world-size", str(n),
                  "--rank", str(rank), "--backend", backend, "--device", device,
-                 "--timeout", str(timeout), "--out", outs[rank]],
+                 "--timeout", str(timeout), "--out", outs[rank], *args],
                 env=dict(env, LOCAL_RANK=str(rank)), cwd=tmp, stdout=logs[rank],
                 stderr=subprocess.STDOUT))
         # a rank that fails leaves the others waiting in a collective
@@ -78,6 +87,12 @@ def run(n: int, backend: str, device: str, timeout: float) -> dict:
         for log in logs:
             log.close()
         shutil.rmtree(tmp, ignore_errors=True)
+    return reports, rcs, wall
+
+
+def run(n: int, backend: str, device: str, timeout: float) -> dict:
+    reports, _, wall = launch(n, "reconstructor_tpu_torch.scripts.multiproc_worker", backend,
+                              device, timeout)
     ok = (len(reports) == n and all(r.get("ok") for r in reports)
           and all(r["n_processes"] == n for r in reports))
     return {"ok": bool(ok), "n_processes": n, "backend": backend, "device": device,

@@ -9,8 +9,13 @@ that trace (``record_function``).
 
 ``stage_summary`` reads such a trace back and, for every annotated name,
 sums the host windows, counts the CUDA launches made inside them, and
-measures the device-busy time: the union of the intervals of kernel,
-memcpy and memset events on the card, clipped to the name's windows.
+measures the device-busy time two ways: the union of the intervals of
+kernel, memcpy and memset events on the card clipped to the name's
+windows, and the union of the intervals of the device events whose
+launch (the runtime or driver call with the same CUPTI correlation id)
+falls inside the windows. The second does not depend on the card's
+timestamps lining up with the host's, so a kernel of a few microseconds
+is not lost when the two clocks drift apart by more than its length.
 """
 
 from __future__ import annotations
@@ -84,8 +89,11 @@ def stage_summary(trace_path: str, names: Iterable[str], top: int = 5) -> Dict[s
     length on the host clock), ``launches`` (CUDA launch calls made inside
     them), ``busy_s`` (device-busy seconds inside them, None when the trace
     holds no device events at all) and ``top_kernels`` (the ``top`` kernels
-    by device time inside them, as [name, seconds]). The key ``"all"``
-    holds the whole trace's device-busy seconds and top kernels."""
+    by device time inside them, as [name, seconds]); ``launched_busy_s``
+    and ``launched_kernels`` are the same for the device events launched
+    inside them (matched by correlation id, not clipped). The key
+    ``"all"`` holds the whole trace's device-busy seconds and top
+    kernels."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     names = list(names)
@@ -93,18 +101,27 @@ def stage_summary(trace_path: str, names: Iterable[str], top: int = 5) -> Dict[s
     device: List[Tuple[float, float]] = []
     kernels: List[Tuple[float, float, str]] = []
     launches: List[float] = []
+    host_ts: Dict[int, float] = {}     # correlation id -> host start of its runtime call
+    correlated: List[Tuple[int, float, float, str]] = []
     for ev in events:
         if ev.get("ph") != "X":
             continue
         cat, ts, dur = ev.get("cat"), float(ev.get("ts", 0.0)), float(ev.get("dur", 0.0))
+        corr = (ev.get("args") or {}).get("correlation")
         if cat == "user_annotation" and ev.get("name") in names:
             windows[ev["name"]].append((ts, ts + dur))
         elif cat in DEVICE_CATS:
             device.append((ts, ts + dur))
+            name = ev.get("name", "")[:NAME_CHARS] if cat == "kernel" else ""
             if cat == "kernel":
-                kernels.append((ts, ts + dur, ev.get("name", "")[:NAME_CHARS]))
-        elif cat in LAUNCH_CATS and "Launch" in ev.get("name", ""):
-            launches.append(ts)
+                kernels.append((ts, ts + dur, name))
+            if corr is not None:
+                correlated.append((corr, ts, ts + dur, name))
+        elif cat in LAUNCH_CATS:
+            if corr is not None:
+                host_ts[corr] = ts
+            if "Launch" in ev.get("name", ""):
+                launches.append(ts)
     merged = _merge(device)
     starts = [s for s, _ in merged]
     launches.sort()
@@ -122,17 +139,37 @@ def stage_summary(trace_path: str, names: Iterable[str], top: int = 5) -> Dict[s
                 k += 1
         return [[n, v] for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]]
 
+    def launched_inside(wins) -> Tuple[float, List[list]]:
+        """Busy seconds and top kernels of the device events whose
+        runtime call starts inside ``wins``."""
+        wstarts = [s for s, _ in wins]
+        spans, by_name = [], defaultdict(float)
+        for corr, s, e, kname in correlated:
+            t = host_ts.get(corr)
+            if t is None:
+                continue
+            k = bisect.bisect_right(wstarts, t) - 1
+            if k >= 0 and t < wins[k][1]:
+                spans.append((s, e))
+                if kname:
+                    by_name[kname] += (e - s) * 1e-6
+        busy = sum(e - s for s, e in _merge(spans)) * 1e-6
+        return busy, [[n, v] for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]]
+
     out: Dict[str, dict] = {}
     for name in names:
         wins = _merge(windows.get(name, []))
         busy = sum(_covered(merged, starts, s, e) for s, e in wins) * 1e-6
         n_launch = sum(bisect.bisect_left(launches, e) - bisect.bisect_left(launches, s)
                        for s, e in wins)
+        launched_busy, launched_kernels = launched_inside(wins)
         out[name] = {"windows": len(windows.get(name, [])),
                      "wall_s": sum(e - s for s, e in wins) * 1e-6,
                      "launches": n_launch,
                      "busy_s": busy if merged else None,
-                     "top_kernels": top_kernels(wins)}
+                     "top_kernels": top_kernels(wins),
+                     "launched_busy_s": launched_busy if merged else None,
+                     "launched_kernels": launched_kernels}
     whole = [(merged[0][0], merged[-1][1])] if merged else []
     out["all"] = {"busy_s": sum(e - s for s, e in merged) * 1e-6 if merged else None,
                   "launches": len(launches), "top_kernels": top_kernels(whole)}

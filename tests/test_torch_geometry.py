@@ -180,6 +180,23 @@ class TestTriangulation:
         np.testing.assert_allclose(np.asarray(xyz_j)[sel], xyz_t.numpy()[sel],
                                    rtol=1e-3, atol=1e-3)
 
+    def test_eigh_in_slices(self, monkeypatch):
+        """The DLT's eigh runs in slices of ``EIGH_BATCH`` matrices (the
+        card's batched eigensolver rejects large batches): slices of 7
+        give every point of one call bit for bit, and the JAX result."""
+        rng = np.random.default_rng(8)
+        P, I, uv, mask = self._views(rng)
+        whole = ttri.triangulate_batch(t(P), t(I), t(uv), t(mask))
+        monkeypatch.setattr(ttri, "EIGH_BATCH", 7)
+        sliced = ttri.triangulate_batch(t(P), t(I), t(uv), t(mask))
+        assert torch.equal(torch.isnan(whole), torch.isnan(sliced))
+        ok = ~torch.isnan(whole)
+        assert torch.equal(whole[ok], sliced[ok])
+        xyz_j = np.asarray(jtri.triangulate_batch(jnp.asarray(P), jnp.asarray(I),
+                                                  jnp.asarray(uv), jnp.asarray(mask)))
+        sel = mask.sum(1) >= 2
+        np.testing.assert_allclose(xyz_j[sel], sliced.numpy()[sel], rtol=1e-3, atol=1e-3)
+
     def test_angles(self):
         rng = np.random.default_rng(9)
         pts = rng.normal(0, 1, (20, 3)).astype(np.float32)

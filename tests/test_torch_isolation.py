@@ -1,7 +1,8 @@
 """The port runs where neither JAX, nor the JAX package, nor PIL exists.
 
 A fresh interpreter blocks ``jax``, ``reconstructor_tpu`` and ``PIL``
-(``sys.modules[name] = None`` makes any import of them fail), imports
+(and, where it imports every module, ``optax``: ``sys.modules[name] =
+None`` makes any import of them fail), imports
 every module of ``reconstructor_tpu_torch`` and ``chip_smoke`` (without
 running it), then runs the CPU end-to-end slice on a tiny rendered scene
 through the same entry points ``chip_smoke.py`` drives on the card: the
@@ -20,7 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import sys
-for name in ("jax", "jaxlib", "reconstructor_tpu", "PIL"):
+for name in ("jax", "jaxlib", "optax", "reconstructor_tpu", "PIL"):
     sys.modules[name] = None
 import importlib, json, pkgutil
 import numpy as np
@@ -47,7 +48,7 @@ cfg = ReconstructorConfig(max_keypoints=256, ransac_num_hypotheses=256,
 rec = IncrementalReconstructor(cfg, verbose=False, device="cpu")
 state = rec.reconstruct_from_state(rec.detect_features_from_images(imgs))
 leaked = sorted(k for k in sys.modules
-                if k.split(".")[0] in ("jax", "jaxlib", "reconstructor_tpu", "PIL")
+                if k.split(".")[0] in ("jax", "jaxlib", "optax", "reconstructor_tpu", "PIL")
                 and sys.modules[k] is not None)
 print(json.dumps({"modules": len(mods), "module_names": mods, "group_at_import": group_at_import,
                   "registered": len(state.registered),
@@ -156,6 +157,11 @@ def test_port_runs_without_jax_pil_or_the_jax_package():
             "reconstructor_tpu_torch.scripts.stress_report",
             "reconstructor_tpu_torch.scripts.exp_ba", "reconstructor_tpu_torch.scripts.profile_ba",
             "reconstructor_tpu_torch.scripts.profile_ba_latency"} <= set(res["module_names"])
+    # the training, BA-variant and rank-scaling scripts, with optax blocked too
+    assert {"reconstructor_tpu_torch.scripts.train_frontend",
+            "reconstructor_tpu_torch.scripts.check_ba_variants",
+            "reconstructor_tpu_torch.scripts.bench_scaling",
+            "reconstructor_tpu_torch.scripts.diag_scaling"} <= set(res["module_names"])
     assert res["group_at_import"] is False
     # 5 rendered views, 256 keypoints: every view registers (measured
     # 5/5, 125 landmarks, 5.8% normalised ATE); bound the ATE at 15%
@@ -183,7 +189,7 @@ def test_sources_import_no_jax():
                 continue
             for n in names:
                 top = n.split(".")[0]
-                assert top not in ("jax", "jaxlib", "reconstructor_tpu"), (path, n)
+                assert top not in ("jax", "jaxlib", "optax", "reconstructor_tpu"), (path, n)
                 if top == "PIL":
                     assert path.endswith((os.path.join("io", "images.py"),
                                           os.path.join("utils", "viz.py"))), path

@@ -85,6 +85,45 @@ def test_stage_summary_clips_device_time_to_the_windows(tmp_path):
     assert s["other"]["top_kernels"] == [["k2", pytest.approx(10e-6)]]
 
 
+
+def test_stage_summary_attributes_device_time_to_launches(tmp_path):
+    """``launched_busy_s`` counts the device events whose runtime call
+    (same correlation id) starts inside the windows, whole, wherever the
+    card's timestamps put them: a kernel traced before its launch (the
+    two clocks drifted) still counts, where the clipped ``busy_s`` loses
+    it; a kernel launched outside the windows does not count, though it
+    runs inside one."""
+    ev = [
+        {"ph": "X", "cat": "user_annotation", "name": "call", "ts": 100.0, "dur": 20.0},
+        {"ph": "X", "cat": "user_annotation", "name": "call", "ts": 200.0, "dur": 20.0},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 102.0, "dur": 3.0,
+         "args": {"correlation": 1}},
+        {"ph": "X", "cat": "kernel", "name": "k", "ts": 60.0, "dur": 2.0,
+         "args": {"correlation": 1}},                                   # drifted 40 early
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 202.0, "dur": 3.0,
+         "args": {"correlation": 2}},
+        {"ph": "X", "cat": "kernel", "name": "k", "ts": 207.0, "dur": 2.0,
+         "args": {"correlation": 2}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemsetAsync", "ts": 203.0, "dur": 1.0,
+         "args": {"correlation": 3}},
+        {"ph": "X", "cat": "gpu_memset", "name": "Memset", "ts": 208.0, "dur": 4.0,
+         "args": {"correlation": 3}},                                   # overlaps k: once
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 150.0, "dur": 3.0,
+         "args": {"correlation": 4}},
+        {"ph": "X", "cat": "kernel", "name": "late", "ts": 210.0, "dur": 5.0,
+         "args": {"correlation": 4}},                                   # launched outside
+    ]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    st = profiling.stage_summary(str(path), ["call"])["call"]
+    assert st["launches"] == 2
+    # k [207, 209) + memset [208, 212) -> 5; the drifted k -> 2
+    assert st["launched_busy_s"] == pytest.approx(7e-6)
+    assert st["launched_kernels"] == [["k", pytest.approx(4e-6)]]
+    # clipped: [207, 215) from k, memset and "late"; the drifted k is lost
+    assert st["busy_s"] == pytest.approx(8e-6)
+    assert [k for k, _ in st["top_kernels"]] == ["late", "k"]
+
 @pytest.fixture(scope="module")
 def small_scene():
     sc = render.make_scene(seed=0, n_views=5, h=192, w=256, n_blobs=200, tex_size=512,

@@ -1,6 +1,9 @@
 """Helpers shared by the port's parity tests (``test_torch_*.py``): numpy
 inputs to both packages, and the raw RANSAC draws the JAX samplers make."""
 
+import contextlib
+import signal
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -14,6 +17,22 @@ from reconstructor_tpu.geometry import se3 as jse3
 torch.set_num_threads(2)
 
 I32MAX = jnp.iinfo(jnp.int32).max
+
+
+@contextlib.contextmanager
+def time_limit(seconds: int):
+    """Fail the enclosed test (as a decorator) or block with TimeoutError
+    once it has run ``seconds`` of wall time (SIGALRM; pytest runs each
+    test in its process's main thread)."""
+    def expire(signum, frame):
+        raise TimeoutError(f"over its time limit of {seconds} s")
+    previous = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
 
 
 def t(a):
