@@ -7,7 +7,7 @@
 Phases, each printing one or more lines with its elapsed seconds:
 
 1. device   — the card's name and power limit (nvidia-smi).
-2. build    — nvcc builds the five CUDA kernel sources in this checkout,
+2. build    — nvcc builds the six CUDA kernel sources in this checkout,
               side by side (one nvcc process per source), and prints every
               kernel's registers, static shared memory and spills
               (``-Xptxas -v``), the bf16 kNN launch that the kNN, packed
@@ -76,20 +76,30 @@ Phases, each printing one or more lines with its elapsed seconds:
 8. segsum   — the fixed-order segment-sum kernel of the PCG solver
               (kernel 5) against its plain version (``index_add_`` over the
               live rows): ragged layouts with integer values (empty
-              segments among short and long ones, one segment holding every
-              live row, no mask, every row masked; widths 1-144), equal bit
-              for bit and empty segments exactly zero; then random values at
-              the street problem's shapes (500,000 live observations into
-              112 cameras at W = 12 and 144, into 131,072 points at W = 3
-              and 9) and at the saved fountain problem's (32 x 16,384,
-              65,536 observations): three calls equal bit for bit, within
-              2e-6 of the magnitudes from a float64 sum; kernel, plain and
+              segments among short and long ones, long ones split over
+              many blocks, one segment holding every live row, no mask,
+              every row masked; widths 1-144), equal bit for bit and empty
+              segments exactly zero; then random values at the street
+              problem's shapes (500,000 live observations into 112
+              cameras at W = 12 and 144, into 131,072 points at W = 3 and
+              9) and at the saved fountain problem's (32 x 16,384, 65,536
+              observations): three calls equal bit for bit, within 2e-6 of
+              the magnitudes from a float64 sum; kernel, plain and
               ``index_add_`` times beside the bound, the kernel and
               ``index_add_`` also traced one call at a time (the card's
-              busy time a call, and the wrapper's host share). It runs
-              after the learned phase, beside the packed trace: a
-              process's first torch.profiler session leaves a one-time
-              cost in the next path's stages.
+              busy time a call, and the wrapper's host share). Then the
+              fused Schur-sum kernel (kernel 6, ``ba/cuda_schur.py``):
+              both directions (W^T u into landmarks, W z into cameras)
+              equal to their plain versions bit for bit on ragged integer
+              inputs (u in shared memory and not), then at the street and
+              fountain shapes on random Y, u, z: three calls equal, within
+              3e-6 of float64 sums of the products' magnitudes; kernel,
+              plain, the chain it replaced (gather + einsum + kernel 5)
+              and the library chain (gather + einsum + ``index_add_``)
+              timed beside the bound, each traced (device ms, launches a
+              call). It runs after the learned phase, beside the packed
+              trace: a process's first torch.profiler session leaves a
+              one-time cost in the next path's stages.
 9. render   — the 25-view 384x512 scene, rendered once from a seed for
               the end-to-end and profile phases.
 10. e2e     — the default path (SIFT, kNN + F-gate, PnP, BA) through
@@ -132,11 +142,13 @@ Phases, each printing one or more lines with its elapsed seconds:
               how many of 10 single draws pass on the run's matches.
 14. pcg     — (a) the default path with ``ba_solver="pcg"``: every bundle
               adjustment through the implicit-Schur PCG solver (counted),
-              the segment-sum kernel launched, with the e2e phase's limits;
+              the segment-sum and fused Schur-sum kernels launched (the
+              same counts in both runs), with the e2e phase's limits;
               run twice, both as users run it, and the two end states must
               be equal bit for bit (every sum over observations in a fixed
               order); then the segment-sum kernel on the J_c^T r rows of
-              the run's last BA problem, against its plain version, timed;
+              the run's last BA problem and the Schur-sum kernel on its Y,
+              against their plain versions, timed;
               (b) a street-scale problem over
               the dense budget (100 cameras x 100,000 points, ~5e5
               observations, built on the card from a seed with
@@ -151,7 +163,8 @@ Phases, each printing one or more lines with its elapsed seconds:
               ``FileStore`` in the temporary directory): (a) the default
               path with ``mesh=`` at the pcg phase's seed and
               configuration, as users run it: every BA through
-              ``solve_distributed``, the kNN and segment-sum kernels
+              ``solve_distributed``, the kNN, segment-sum and Schur-sum
+              kernels
               launched, and the end state equal to the pcg run's bit for
               bit; stage times beside the pcg run's; (b) the learned run's
               first two chunks (16 pairs) through
@@ -1276,7 +1289,7 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
     (reconstructor, state, launches, summary)."""
     import numpy as np
     import torch
-    from reconstructor_tpu_torch.ba import cuda_segsum
+    from reconstructor_tpu_torch.ba import cuda_schur, cuda_segsum
     from reconstructor_tpu_torch.eval import synth
     from reconstructor_tpu_torch.matching import cuda_knn, cuda_sinkhorn
     from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
@@ -1287,6 +1300,7 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
     cuda_knn.reset_launches()
     cuda_sinkhorn.reset_launches()
     cuda_segsum.reset_launches()
+    cuda_schur.reset_launches()
     t = time.perf_counter()
     state = rec.detect_features_from_images(imgs)
     torch.cuda.synchronize()
@@ -1298,7 +1312,7 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
     torch.cuda.synchronize()
     t_rec = time.perf_counter() - t
     launches = {"knn_top2": cuda_knn.LAUNCHES, "sinkhorn": cuda_sinkhorn.LAUNCHES,
-                "seg_sum": cuda_segsum.LAUNCHES}
+                "seg_sum": cuda_segsum.LAUNCHES, "schur_sums": cuda_schur.LAUNCHES}
     for name, ms in rec.timer.totals().items():
         log(phase, f"stage '{name}': {ms / 1e3:.2f}s")
     ate = synth.pose_ate(state.poses, scene["poses"])
@@ -1543,12 +1557,12 @@ def check_same_state(a, b, what: str) -> None:
 def phase_pcg_path(dev, tmp: str, scene, imgs, cfg):
     """The default path with ``ba_solver="pcg"``, twice, both as users run
     it: every bundle adjustment through the implicit-Schur PCG solver
-    (counted), none through the dense one, the segment-sum kernel
-    launched; the second run must end in the first's state bit for bit
+    (counted), none through the dense one, kernels 5 and 6 launched,
+    as often in both runs; the second run must end in the first's state bit for bit
     (every sum over observations is the fixed-order kernel, no atomics).
-    Then the kernel on the last BA problem of the run, against its plain
-    version. Returns (summary, state, the kernel's comparison and
-    timing), the mesh phase's reference."""
+    Then kernels 5 and 6 on the last BA problem of the run, against their
+    plain versions. Returns (summary, state, (launches, kernel 5's and
+    kernel 6's comparisons and timings)), the mesh phase's reference."""
     from reconstructor_tpu_torch.ba import distributed
     last = {}
     real_pcg = distributed.solve_pcg
@@ -1568,8 +1582,9 @@ def phase_pcg_path(dev, tmp: str, scene, imgs, cfg):
                f"25/25 views, 2351 landmarks, 7.29% ATE)")
     check(launches["knn_top2"] > 0 and launches2["knn_top2"] > 0,
           "the PCG path never launched the kNN kernel")
-    check(launches["seg_sum"] > 0 and launches2["seg_sum"] == launches["seg_sum"],
-          f"the PCG path's segment-sum launches: {launches['seg_sum']}, {launches2['seg_sum']}")
+    for k in ("seg_sum", "schur_sums"):
+        check(launches[k] > 0 and launches2[k] == launches[k],
+              f"the PCG path's {k} launches: {launches[k]}, {launches2[k]}")
     check(calls["pcg"] > 0 and calls["dense"] == 0 and calls["distributed"] == 0
           and calls2 == calls, f"the PCG path's bundle adjustments went elsewhere: "
                                f"{calls}, {calls2}")
@@ -1580,88 +1595,7 @@ def phase_pcg_path(dev, tmp: str, scene, imgs, cfg):
     log("pcg-again", json.dumps(summary2))
     check_same_state(state, again, "two PCG-routed runs")
     log("pcg", f"the two runs end in one state bit for bit: {summary['state_sha256']}")
-    kernel = segsum_path_problem(last["prob"])
-    return summary, state, (launches["seg_sum"], kernel)
-
-
-def street_problem(dev, seed: int = 0, n_cams: int = 100, n_pts: int = 100_000,
-                   views: int = 5, px_noise: float = 0.5, pose_noise: float = 0.02,
-                   pt_noise: float = 0.05):
-    """A street-scale BA problem, built on the card from ``seed`` with the
-    noise model of ``tests/test_ba.py::make_ba_problem``: ``n_cams``
-    cameras 0.5 apart along a track, looking sideways at a facade 8-20 m
-    away; each point observed by the ``views`` cameras nearest it that have
-    it in front and in the 640x480 frame, with ``px_noise`` pixels of noise;
-    camera 0 fixed, camera 1's translation fixed. Padded as the driver pads
-    (cameras to 16, points and observations to powers of two). Returns
-    (problem, host (obs_pt, obs_cam, obs_mask), live observations)."""
-    import numpy as np
-    import torch
-    from reconstructor_tpu_torch.ba import lm as ba_lm
-    from reconstructor_tpu_torch.geometry import se3
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-
-    def normal(*shape, std=1.0):
-        return torch.randn(*shape, generator=g, device=dev) * std
-
-    i = torch.arange(n_cams, device=dev, dtype=torch.float32)
-    centres = torch.stack([0.5 * i, torch.zeros_like(i), torch.zeros_like(i)], 1)
-    aa = torch.stack([0.01 * torch.cos(i / 5), 0.05 * torch.sin(i / 7),
-                      torch.zeros_like(i)], 1)
-    R = se3.angle_axis_to_rotation(aa)
-    t = -torch.einsum("cij,cj->ci", R, centres)
-    intr = torch.tensor([600.0, 600.0, 320.0, 240.0, 0.0, 0.0], device=dev)
-    cams = torch.cat([aa, t, intr.expand(n_cams, 6)], 1)
-    lo = torch.tensor([0.0, -3.0, 8.0], device=dev)
-    hi = torch.tensor([0.5 * (n_cams - 1), 3.0, 20.0], device=dev)
-    pts = lo + (hi - lo) * torch.rand(n_pts, 3, generator=g, device=dev)
-
-    pc = torch.einsum("cij,lj->cli", R, pts) + t[:, None]
-    u = 600.0 * pc[..., 0] / pc[..., 2] + 320.0
-    v = 600.0 * pc[..., 1] / pc[..., 2] + 240.0
-    seen = (pc[..., 2] > 0.1) & (u >= 0) & (u < 640) & (v >= 0) & (v < 480)
-    dist = torch.where(seen, (pts[None, :, 0] - centres[:, None, 0]).abs(), float("inf"))
-    d, cam_ids = torch.topk(dist, views, dim=0, largest=False)          # (views, L)
-    ok = torch.isfinite(d)
-    obs_cam = cam_ids[ok]
-    obs_pt = torch.arange(n_pts, device=dev).expand(views, n_pts)[ok]
-    O = int(obs_cam.numel())
-    uv = ba_lm._resid(cams[obs_cam], pts[obs_pt], torch.zeros(O, 2, device=dev))
-    uv = uv + normal(O, 2, std=px_noise)
-
-    init = cams.clone()
-    init[2:, :3] += normal(n_cams - 2, 3, std=pose_noise)
-    init[2:, 3:6] += normal(n_cams - 2, 3, std=pose_noise * 5)
-    init[1, :3] += normal(3, std=pose_noise)
-    pts_init = pts + normal(n_pts, 3, std=pt_noise)
-
-    C_pad = max(16, -(-n_cams // 16) * 16)
-    L_pad = ba_lm._bucket(n_pts, 1)
-    O_pad = ba_lm._bucket(O, 1)
-
-    def pad(x, n):
-        out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=dev)
-        out[:x.shape[0]] = x
-        return out
-    free = torch.as_tensor(ba_lm.make_cam_free_mask(n_cams), device=dev)
-    mask = torch.zeros(O_pad, dtype=torch.bool, device=dev)
-    mask[:O] = True
-    prob = ba_lm.BAProblem(
-        cam_params=pad(init, C_pad), points=pad(pts_init, L_pad),
-        obs_cam=pad(obs_cam.to(torch.int32), O_pad), obs_pt=pad(obs_pt.to(torch.int32), O_pad),
-        obs_uv=pad(uv, O_pad), obs_mask=mask, cam_free=pad(free, C_pad))
-    host = tuple(np.ascontiguousarray(x.cpu().numpy())
-                 for x in (prob.obs_pt, prob.obs_cam, prob.obs_mask))
-    return prob, host, O
-
-
-def street_ba_kwargs(cfg) -> dict:
-    """The driver's settings for a global BA of 10 or more cameras."""
-    return dict(max_iters=cfg.ba_max_iters_large, init_lambda=cfg.ba_init_lambda,
-                lambda_up=cfg.ba_lambda_up, lambda_down=cfg.ba_lambda_down,
-                ftol=cfg.ba_ftol, focal_upper_bound=cfg.ba_focal_upper_bound,
-                huber_delta=cfg.ba_huber_delta, damping=cfg.ba_damping)
+    return summary, state, (launches, *segsum_path_problem(last["prob"]))
 
 
 def phase_pcg_street(dev, cfg):
@@ -1672,8 +1606,9 @@ def phase_pcg_street(dev, cfg):
     the gauge camera unmoved."""
     import numpy as np
     import torch
-    from reconstructor_tpu_torch.ba import cuda_segsum, distributed, lm as ba_lm
+    from reconstructor_tpu_torch.ba import cuda_schur, cuda_segsum, distributed, lm as ba_lm
     from reconstructor_tpu_torch.pipeline import incremental
+    from reconstructor_tpu_torch.scripts.profile_pcg_path import street_ba_kwargs, street_problem
     px_noise = 0.5
     t = time.perf_counter()
     prob, host, O = street_problem(dev, px_noise=px_noise)
@@ -1694,6 +1629,7 @@ def phase_pcg_street(dev, cfg):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         cuda_segsum.reset_launches()
+        cuda_schur.reset_launches()
         t = time.perf_counter()
         res = solve()
         torch.cuda.synchronize()
@@ -1703,7 +1639,8 @@ def phase_pcg_street(dev, cfg):
         out[name] = {"cost_initial": float(res.cost_initial), "cost_final": cost,
                      "rms_px": rms, "iterations": int(res.iterations), "wall_s": wall,
                      "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-                     "seg_sum_launches": cuda_segsum.LAUNCHES}
+                     "seg_sum_launches": cuda_segsum.LAUNCHES,
+                     "schur_sums_launches": cuda_schur.LAUNCHES}
         log("pcg", f"street problem, {name}: " + json.dumps(out[name]))
         check(bool(torch.isfinite(res.cam_params).all() and torch.isfinite(res.points).all()),
               f"{name}: non-finite result")
@@ -1717,22 +1654,32 @@ def phase_pcg_street(dev, cfg):
 
 
 # ----------------------------------------------------------------------
-# the fixed-order segment sums of PCG (kernel 5)
+# the fixed-order segment sums of PCG (kernels 5 and 6)
 # ----------------------------------------------------------------------
 
 # Kernel against float64 sums: error within SEGSUM_REL_TOL of the
 # segment's sum of magnitudes. float32 rounding along the kernel's chains
-# (up to ~420 additions a thread at W = 144 on a 5,000-row segment) bounds
-# it by ~2.5e-5 in the worst case; random signs leave ~1e-7 (measured <=
-# 1.6e-7, the atomics of index_add_ ~2e-7).
+# (up to ~35 additions a column on a 5,000-row segment at W = 144: 18 a
+# thread, the row phases, ~10 chunks) bounds it by ~2.1e-6 in the worst
+# case; random signs leave ~1e-7 (a block a segment measured <= 1.6e-7,
+# the atomics of index_add_ ~2e-7).
 SEGSUM_REL_TOL = 2e-6
+# Kernel 6 against float64, relative to the sum of the products'
+# magnitudes (sum over rows and terms of |Y| |operand|): each row's
+# product is a 12-term fmaf chain (3 terms into cameras), then up to
+# LONG_ROWS - 1 = 31 additions a landmark or ~20 a camera (2 rows a
+# thread, a 256-thread tree, ~10 chunks): at most ~43 roundings of 2^-24,
+# ~2.6e-6 in the worst case; random signs leave a few 1e-7.
+SCHUR_REL_TOL = 3e-6
 
 
 def segsum_bytes(lay, W: int) -> float:
     """Bytes the sum must move: each live row of values and its perm
-    entry once, offsets, the segment list and the output once."""
+    entry once, offsets, the segment list, the chunk table and the output
+    once."""
     live = int(lay.perm.numel())
-    return live * (W * 4 + 4) + (lay.n + 1) * 4 + lay.n * 4 + lay.n * W * 4
+    return (live * (W * 4 + 4) + (lay.n + 1) * 4 + lay.n * 4 + lay.n * W * 4
+            + (lay.n_chunks + lay.n_long + 1) * 4)
 
 
 def compare_segsum(values, lay, index, label: str) -> dict:
@@ -1768,7 +1715,8 @@ def compare_segsum(values, lay, index, label: str) -> dict:
            "library_ms": cuda_ms(lambda: torch.zeros(lay.n, W, device=values.device)
                                  .index_add_(0, index, values), iters=50, warmup=5),
            "bound_ms": bound, "bound_by": "bytes",
-           "live_rows": int(lay.perm.numel()), "segments": lay.n, "long_segments": lay.n_long}
+           "live_rows": int(lay.perm.numel()), "segments": lay.n, "long_segments": lay.n_long,
+           "chunks": lay.n_chunks}
     tr = trace_calls(lambda: S.seg_sum(values, lay))
     tr_lib = trace_calls(lambda: torch.zeros(lay.n, W, device=values.device)
                          .index_add_(0, index, values))
@@ -1801,24 +1749,31 @@ def segsum_shapes(prob, label: str, seed: int = 0) -> dict:
     return out
 
 
+def ragged_cases(rng):
+    """Segment indices with empty segments among short and long ones (a
+    long one split over many chunks), one segment holding every live row,
+    no mask, and every row masked: name -> (index, n, mask or None)."""
+    import numpy as np
+    rows = 20000
+    idx = rng.choice(np.arange(300)[np.arange(300) % 4 != 0], rows)
+    idx[rng.uniform(size=rows) < 0.4] = 7
+    return {"empty, short and long segments": (idx, 300, rng.uniform(size=rows) >= 0.2),
+            "one segment holds every live row": (np.full(5000, 5), 12,
+                                                 rng.uniform(size=5000) >= 0.3),
+            "no mask, one segment": (np.zeros(777, np.int64), 1, None),
+            "every row masked": (rng.integers(0, 20, 1000), 20, np.zeros(1000, bool))}
+
+
 def segsum_ragged(dev) -> None:
-    """Ragged layouts with integer values (every sum exact, so the kernel
-    must equal the plain version bit for bit): empty segments among short
-    and long ones, one segment holding every live row, a layout without
-    a mask, and every row masked (exact zeros); widths from 1 to 144."""
+    """Kernel 5 on ragged layouts with integer values (every sum exact, so
+    the kernel must equal the plain version bit for bit): ``ragged_cases``
+    at widths from 1 to 144 (float and float4 columns); empty segments
+    exactly zero."""
     import numpy as np
     import torch
     from reconstructor_tpu_torch.ba import cuda_segsum as S
     rng = np.random.default_rng(0)
-    rows = 20000
-    idx = rng.choice(np.arange(300)[np.arange(300) % 4 != 0], rows)
-    idx[rng.uniform(size=rows) < 0.4] = 7
-    cases = {"empty, short and long segments": (idx, 300, rng.uniform(size=rows) >= 0.2),
-             "one segment holds every live row": (np.full(5000, 5), 12,
-                                                  rng.uniform(size=5000) >= 0.3),
-             "no mask, one segment": (np.zeros(777, np.int64), 1, None),
-             "every row masked": (rng.integers(0, 20, 1000), 20, np.zeros(1000, bool))}
-    for name, (index, n, mask) in cases.items():
+    for name, (index, n, mask) in ragged_cases(rng).items():
         index_t = torch.as_tensor(index, device=dev).long()
         mask_t = None if mask is None else torch.as_tensor(mask, device=dev)
         lay = S.segment_layout(index_t, n, mask_t)
@@ -1833,41 +1788,188 @@ def segsum_ragged(dev) -> None:
                   f"segsum ragged '{name}' W={W}: kernel != plain")
             check(not bool(got[empty].any()), f"segsum ragged '{name}' W={W}: an empty "
                                               f"segment is not zero")
-        log("segsum", f"ragged '{name}': {lay.n} segments, {lay.n_long} long, "
-                      f"{int(lay.perm.numel())} live rows: kernel == plain, exact, W 1-144")
+        log("segsum", f"ragged '{name}': {lay.n} segments, {lay.n_long} long in "
+                      f"{lay.n_chunks} chunks, {int(lay.perm.numel())} live rows: "
+                      f"kernel == plain, exact, W 1-144")
 
 
-def segsum_fountain(dev) -> dict:
+def schur_ragged(dev) -> None:
+    """Kernel 6 on ragged layouts with integer Y and operands (every
+    product and sum exact): ``ragged_cases``' indices as the cameras,
+    against landmark indices with empty, short and long (split) segments;
+    both directions equal to their plain versions bit for bit, empty
+    segments exactly zero; u staged in shared memory (12 cameras) and
+    read through L1 (1,000)."""
+    import numpy as np
+    import torch
+    from reconstructor_tpu_torch.ba import cuda_schur as K
+    rng = np.random.default_rng(1)
+    cases = ragged_cases(rng)
+    cases["1,000 cameras"] = (rng.integers(0, 1000, 30000), 1000, rng.uniform(size=30000) >= 0.1)
+    for name, (cam, C, mask) in cases.items():
+        O = len(cam)
+        L = 700
+        pt = rng.integers(0, L, O)
+        pt[rng.uniform(size=O) < 0.1] = 3               # one landmark split over chunks
+        pt[pt % 5 == 1] = 2                             # empty landmarks
+        live = np.ones(O, bool) if mask is None else mask
+        lay = K.schur_layout(torch.as_tensor(cam, device=dev), torch.as_tensor(pt, device=dev),
+                             C, L, None if mask is None else torch.as_tensor(mask, device=dev))
+        Y = torch.as_tensor((rng.integers(-4, 5, (O, 12, 3)) * live[:, None, None])
+                            .astype(np.float32), device=dev)
+        u = torch.as_tensor(rng.integers(-4, 5, (C, 12)).astype(np.float32), device=dev)
+        z = torch.as_tensor(rng.integers(-4, 5, (L, 3)).astype(np.float32), device=dev)
+        for what, got, plain, index, n in (
+                ("ytu_sum", K.ytu_sum(Y, u, lay), K.ytu_sum_plain(Y, u, lay), pt, L),
+                ("yz_sum", K.yz_sum(Y, z, lay), K.yz_sum_plain(Y, z, lay), cam, C)):
+            torch.cuda.synchronize()
+            check(torch.equal(got, plain), f"schur ragged '{name}' {what}: kernel != plain")
+            empty = torch.as_tensor(np.bincount(index[live], minlength=n) == 0, device=dev)
+            check(not bool(got[empty].any()), f"schur ragged '{name}' {what}: an empty "
+                                              f"segment is not zero")
+        log("segsum", f"schur ragged '{name}': {C} cameras ({lay.cam.n_long} long, "
+                      f"{lay.cam.n_chunks} chunks), {L} landmarks ({lay.pt.n_long} long, "
+                      f"{lay.pt.n_chunks} chunks), {int(live.sum())} live rows: both "
+                      f"directions == plain, exact")
+
+
+def schur_bytes(seg, n_operand: int, op_w: int, out_w: int) -> float:
+    """Bytes one direction of kernel 6 must move: each live row of Y
+    (144 B) with its perm and other entries, the operand, offsets, the
+    segment list, the chunk table and the output once."""
+    live = int(seg.perm.numel())
+    return (live * (144 + 8) + n_operand * op_w * 4 + (seg.n + 1) * 4 + seg.n * 4
+            + (seg.n_chunks + seg.n_long + 1) * 4 + seg.n * out_w * 4)
+
+
+def compare_schur(Y, u, z, lay, label: str) -> dict:
+    """Kernel 6's two directions on Y (O, 12, 3), u (C, 12), z (L, 3):
+    three calls equal bit for bit, within SCHUR_REL_TOL of a float64 sum
+    of the products; max abs difference from the plain version; kernel,
+    plain, the chain it replaced (gather + einsum + kernel 5) and the
+    library chain (gather + einsum + ``index_add_``) timed back to back
+    beside the bound (bytes at 3.35 TB/s); the kernel and both chains
+    also traced a call at a time (device ms and launches a call)."""
+    import torch
+    from reconstructor_tpu_torch.ba import cuda_schur as K, cuda_segsum as S
+    Y64 = Y.double()
+    out = {}
+    for d, op, seg, n_op, op_w, out_w in (("ytu", u, lay.pt, lay.cam.n, 12, 3),
+                                          ("yz", z, lay.cam, lay.pt.n, 3, 12)):
+        if d == "ytu":
+            fn = lambda: K.ytu_sum(Y, u, lay)
+            plain = lambda: K.ytu_sum_plain(Y, u, lay)
+            chain = lambda: S.seg_sum(torch.einsum("oij,oi->oj", Y, u[lay.obs_cam]), lay.pt)
+            library = lambda: torch.zeros(lay.pt.n, 3, device=Y.device).index_add_(
+                0, lay.obs_pt, torch.einsum("oij,oi->oj", Y, u[lay.obs_cam]))
+            prods = torch.einsum("oij,oi->oj", Y64, u.double()[lay.obs_cam])
+            mags = torch.einsum("oij,oi->oj", Y64.abs(), u.double().abs()[lay.obs_cam])
+            index = lay.obs_pt
+        else:
+            fn = lambda: K.yz_sum(Y, z, lay)
+            plain = lambda: K.yz_sum_plain(Y, z, lay)
+            chain = lambda: S.seg_sum(torch.einsum("oij,oj->oi", Y, z[lay.obs_pt]), lay.cam)
+            library = lambda: torch.zeros(lay.cam.n, 12, device=Y.device).index_add_(
+                0, lay.obs_cam, torch.einsum("oij,oj->oi", Y, z[lay.obs_pt]))
+            prods = torch.einsum("oij,oj->oi", Y64, z.double()[lay.obs_pt])
+            mags = torch.einsum("oij,oj->oi", Y64.abs(), z.double().abs()[lay.obs_pt])
+            index = lay.obs_cam
+        got = [fn() for _ in range(3)]
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], got[1]) and torch.equal(got[1], got[2]),
+              f"schur {label} {d}: three calls differ")
+        rows = seg.rows
+        ref = torch.zeros(seg.n, out_w, dtype=torch.float64, device=Y.device).index_add_(
+            0, index[rows], prods[rows])
+        mag = torch.zeros_like(ref).index_add_(0, index[rows], mags[rows])
+        rel = float(((got[0].double() - ref).abs() / mag.clamp(min=1e-30)).max())
+        p = plain()
+        rel_plain = float(((p.double() - ref).abs() / mag.clamp(min=1e-30)).max())
+        res = {"max_abs_err": float((got[0] - p).abs().max()), "rel_err_vs_f64": rel,
+               "plain_rel_err_vs_f64": rel_plain,
+               "ms": cuda_ms(fn, iters=50, warmup=5),
+               "plain_ms": cuda_ms(plain, iters=50, warmup=5),
+               "chain_ms": cuda_ms(chain, iters=50, warmup=5),
+               "library_ms": cuda_ms(library, iters=50, warmup=5),
+               "bound_ms": schur_bytes(seg, n_op, op_w, out_w) / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "live_rows": int(rows.numel()), "segments": seg.n,
+               "long_segments": seg.n_long, "chunks": seg.n_chunks}
+        tr, tr_chain, tr_lib = trace_calls(fn), trace_calls(chain), trace_calls(library)
+        res.update(device_ms=tr["busy_ms"], chain_device_ms=tr_chain["busy_ms"],
+                   library_device_ms=tr_lib["busy_ms"], launches_a_call=tr["launches"],
+                   chain_launches_a_call=tr_chain["launches"],
+                   library_launches_a_call=tr_lib["launches"],
+                   host_share=max(0.0, 1.0 - tr["busy_ms"] / res["ms"]),
+                   kernels_ms=tr["kernels_ms"], chain_kernels_ms=tr_chain["kernels_ms"])
+        log("segsum", f"schur {label}, {d}_sum: " + json.dumps(res))
+        check(rel <= SCHUR_REL_TOL, f"schur {label} {d}: {rel} of the magnitudes from float64")
+        out[d] = res
+    return out
+
+
+def schur_shapes(prob, label: str, seed: int = 0) -> dict:
+    """Kernel 6 on a problem's layouts with random Y (masked rows zero),
+    u and z."""
+    import torch
+    from reconstructor_tpu_torch.ba import cuda_schur as K
+    g = torch.Generator(device=prob.obs_cam.device)
+    g.manual_seed(seed)
+    dev = prob.obs_cam.device
+    lay = K.schur_layout(prob.obs_cam, prob.obs_pt, prob.cam_params.shape[0],
+                         prob.points.shape[0], prob.obs_mask)
+    Y = torch.randn(prob.obs_cam.numel(), 12, 3, generator=g, device=dev)
+    Y = Y * prob.obs_mask[:, None, None]
+    u = torch.randn(lay.cam.n, 12, generator=g, device=dev)
+    z = torch.randn(lay.pt.n, 3, generator=g, device=dev)
+    return compare_schur(Y, u, z, lay, label)
+
+
+def segsum_fountain(dev):
     """The 25-view scale: the saved fountain BA problem (32 x 16,384,
     65,536 observations)."""
     from reconstructor_tpu_torch.scripts import exp_ba
-    return segsum_shapes(exp_ba.load_problem(device=dev), "fountain problem")
+    return exp_ba.load_problem(device=dev)
 
 
 def phase_segsum(dev) -> dict:
-    """Kernel 5 against its plain version: ragged and empty cases exact,
-    then the street problem's and the fountain problem's shapes."""
+    """Kernels 5 and 6 against their plain versions: ragged and empty
+    cases exact, then the street problem's and the fountain problem's
+    shapes."""
+    from reconstructor_tpu_torch.scripts.profile_pcg_path import street_problem
     t = time.perf_counter()
     segsum_ragged(dev)
-    prob, _, _ = street_problem(dev)
-    res = {"street": segsum_shapes(prob, "street problem"), "fountain": segsum_fountain(dev)}
+    schur_ragged(dev)
+    street, _, _ = street_problem(dev)
+    fountain = segsum_fountain(dev)
+    res = {"street": segsum_shapes(street, "street problem"),
+           "fountain": segsum_shapes(fountain, "fountain problem"),
+           "schur_street": schur_shapes(street, "street problem"),
+           "schur_fountain": schur_shapes(fountain, "fountain problem")}
     log("segsum", f"phase {time.perf_counter() - t:.1f}s")
     return res
 
 
-def segsum_path_problem(prob) -> dict:
-    """The kernel on the rows the PCG path sums: J_c^T r of the last BA
-    problem of the run (observations into cameras, W = 12)."""
+def segsum_path_problem(prob):
+    """Both kernels on what the PCG path sums in its last BA problem:
+    kernel 5 on J_c^T r (observations into cameras, W = 12), kernel 6 on
+    the problem's Y with a random u and z. Returns (kernel 5's, kernel
+    6's comparisons)."""
     import torch
     from reconstructor_tpu_torch.ba import cuda_segsum as S, distributed
     prob = prob._replace(obs_cam=prob.obs_cam.long(), obs_pt=prob.obs_pt.long())
-    res, Jc, _ = distributed._build_blocks(prob, prob.cam_params, prob.points)
+    res, Jc, Jp = distributed._build_blocks(prob, prob.cam_params, prob.points)
     rows = torch.einsum("ori,or->oi", Jc, res).contiguous()
-    lay = S.segment_layout(prob.obs_cam, prob.cam_params.shape[0], prob.obs_mask)
-    return compare_segsum(rows, lay, prob.obs_cam,
-                          f"pcg path's last BA problem ({prob.cam_params.shape[0]} x "
-                          f"{prob.points.shape[0]}, {prob.obs_cam.shape[0]} observations), "
-                          f"J_c^T r into cameras")
+    C, L, O = prob.cam_params.shape[0], prob.points.shape[0], prob.obs_cam.shape[0]
+    label = f"pcg path's last BA problem ({C} x {L}, {O} observations)"
+    lay = S.segment_layout(prob.obs_cam, C, prob.obs_mask)
+    k5 = compare_segsum(rows, lay, prob.obs_cam, f"{label}, J_c^T r into cameras")
+    g = torch.Generator(device=prob.obs_cam.device)
+    g.manual_seed(0)
+    Y = torch.einsum("ori,orj->oij", Jc, Jp).contiguous()
+    u = torch.randn(C, 12, generator=g, device=Y.device)
+    z = torch.randn(L, 3, generator=g, device=Y.device)
+    k6 = compare_schur(Y, u, z, distributed._layouts(prob), label)
+    return k5, k6
 
 
 # ----------------------------------------------------------------------
@@ -1900,6 +2002,7 @@ def mesh_path(dev, tmp: str, mesh, scene, imgs, cfg, pcg_run):
                     f"pcg {pcg_summary['stages_s'].get(name, 0.0):.2f}s")
     check(launches["knn_top2"] > 0, "the mesh path never launched the kNN kernel")
     check(launches["seg_sum"] > 0, "the mesh path never launched the segment-sum kernel")
+    check(launches["schur_sums"] > 0, "the mesh path never launched the fused Schur-sum kernel")
     check(calls["distributed"] > 0 and calls["pcg"] == 0 and calls["dense"] == 0,
           f"the mesh path's bundle adjustments went elsewhere: {calls}")
     summary.update(ba_calls=calls, collectives=collectives, state_sha256=state_sha256(state))
@@ -1957,6 +2060,7 @@ def mesh_street(dev, mesh, cfg):
     import torch
     from reconstructor_tpu_torch.ba import distributed
     from reconstructor_tpu_torch.parallel import sharding
+    from reconstructor_tpu_torch.scripts.profile_pcg_path import street_ba_kwargs, street_problem
     px_noise = 0.5
     prob, _, O = street_problem(dev, px_noise=px_noise)
     common = street_ba_kwargs(cfg)
@@ -2510,7 +2614,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, here)
-    from reconstructor_tpu_torch.ba import cuda_segsum
+    from reconstructor_tpu_torch.ba import cuda_schur, cuda_segsum
     from reconstructor_tpu_torch.config import ReconstructorConfig
     from reconstructor_tpu_torch.matching import cuda_knn, cuda_sinkhorn
     from reconstructor_tpu_torch.scripts import profile_knn_kernel
@@ -2528,7 +2632,7 @@ def main(argv=None) -> int:
         cuda_build.load(src)
         return src, time.perf_counter() - t
     sources = [cuda_knn.SOURCE, cuda_sinkhorn.SOURCE, cuda_knn.PACKED_SOURCE,
-               profile_knn_kernel.SOURCE, cuda_segsum.SOURCE]
+               profile_knn_kernel.SOURCE, cuda_segsum.SOURCE, cuda_schur.SOURCE]
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         for src, secs in pool.map(build, sources):
             log("build", f"{src}: {secs:.1f}s")
@@ -2596,13 +2700,22 @@ def main(argv=None) -> int:
         orb_cfg = ReconstructorConfig(detector="orb", rng_seed=args.rng_seed)
         phase_orb(dev, tmp, scene, imgs, orb_cfg)
         pcg_cfg = ReconstructorConfig(ba_solver="pcg", rng_seed=args.rng_seed)
-        pcg_summary, pcg_state, (launches, res) = phase_pcg_path(dev, tmp, scene, imgs, pcg_cfg)
+        pcg_summary, pcg_state, (launches, res, fused) = phase_pcg_path(dev, tmp, scene, imgs,
+                                                                        pcg_cfg)
         kernels.append({"name": "seg_sum", "route": "cuda",
                         "source": "reconstructor_tpu_torch/" + cuda_segsum.SOURCE,
-                        "replaces": cuda_segsum.REPLACES, "launches": launches,
+                        "replaces": cuda_segsum.REPLACES, "launches": launches["seg_sum"],
                         "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                         "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
+        # one W^T u and one W z, as a matvec takes them: both directions summed
+        kernels.append({"name": "schur_sums", "route": "cuda",
+                        "source": "reconstructor_tpu_torch/" + cuda_schur.SOURCE,
+                        "replaces": cuda_schur.REPLACES, "launches": launches["schur_sums"],
+                        "max_abs_err": max(r["max_abs_err"] for r in fused.values()),
+                        **{k: sum(r[k] for r in fused.values())
+                           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                        "bound_by": "bytes"})
         phase_pcg_street(dev, ReconstructorConfig(rng_seed=args.rng_seed))
         phase_mesh(dev, tmp, here, scene, imgs, pcg_cfg, (pcg_summary, pcg_state), learned_run)
         phase_resume(dev, tmp, scene, imgs, orb_cfg.with_(checkpoint_every_views=3))

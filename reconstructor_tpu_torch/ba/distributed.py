@@ -11,11 +11,14 @@ u -> Hcc u - SUM_o Y_o Hpp^-1[pt_o] (Y_o^T u[cam_o]), with the
 per-observation coupling Y_o = Jc_o^T Jp_o. Memory is O(C + L + O).
 
 - Every sum over observations is a segment sum over ``obs_cam`` /
-  ``obs_pt`` (the JAX package's ``segment_sum``) through a layout of the
-  live observations built once per solve (``ba.cuda_segsum``): each
-  observation counts, also a second one of the same (camera, landmark).
-  On the card the sums are the fixed-order kernel ``ba/csrc/seg_sum.cu``
-  (no atomics), on the CPU ``index_add_`` in observation order, so a solve
+  ``obs_pt`` (the JAX package's ``segment_sum``) through the two layouts
+  of the live observations built once per solve
+  (``ba.cuda_schur.schur_layout``): each observation counts, also a second
+  one of the same (camera, landmark). On the card the block sums (g_c,
+  g_p, H_cc, H_pp) are the fixed-order kernel 5 (``ba/csrc/seg_sum.cu``)
+  and W^T u and W z, with their gather and product, one launch each of
+  the fused kernel 6 (``ba/csrc/schur_sums.cu``); no atomics on values.
+  On the CPU both are ``index_add_`` in observation order, so a solve
   repeats bit for bit on either device.
 - The CG early exit is a frozen-state flag: once ||r|| <= tol ||rhs||,
   x, r and p stop changing, which gives the early exit's x. The host reads
@@ -41,12 +44,11 @@ calls and ends with the same state. On one device the hook does nothing.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from reconstructor_tpu_torch.ba import cuda_segsum, lm as ba_lm
+from reconstructor_tpu_torch.ba import cuda_schur, cuda_segsum, lm as ba_lm
 from reconstructor_tpu_torch.parallel.mesh import Mesh, all_sum, replicate, shard_rows
 
 # CG iterations between host reads of the converged flag (the flag, not
@@ -59,16 +61,10 @@ def _local(*sums):
     return sums
 
 
-class _Layouts(NamedTuple):
+def _layouts(prob: ba_lm.BAProblem) -> cuda_schur.SchurLayout:
     """The segment layouts of one solve: observations by camera, by point."""
-    cam: cuda_segsum.SegmentLayout
-    pt: cuda_segsum.SegmentLayout
-
-
-def _layouts(prob: ba_lm.BAProblem) -> _Layouts:
-    C, L = prob.cam_params.shape[0], prob.points.shape[0]
-    return _Layouts(cuda_segsum.segment_layout(prob.obs_cam, C, prob.obs_mask),
-                    cuda_segsum.segment_layout(prob.obs_pt, L, prob.obs_mask))
+    return cuda_schur.schur_layout(prob.obs_cam, prob.obs_pt, prob.cam_params.shape[0],
+                                   prob.points.shape[0], prob.obs_mask)
 
 
 def _inv3x3(m: torch.Tensor) -> torch.Tensor:
@@ -126,7 +122,7 @@ def _pcg(matvec, rhs: torch.Tensor, precond, num_iters: int, tol: float) -> torc
     return x
 
 
-def _build_pcg_blocks(prob: ba_lm.BAProblem, lay: _Layouts, cam, pts,
+def _build_pcg_blocks(prob: ba_lm.BAProblem, lay: cuda_schur.SchurLayout, cam, pts,
                       huber_delta: float = 0.0, reduce=_local):
     """Damping-independent blocks for the implicit-Schur path (built once
     per outer LM iteration; lambda retries reuse them). ``reduce`` sums
@@ -138,26 +134,25 @@ def _build_pcg_blocks(prob: ba_lm.BAProblem, lay: _Layouts, cam, pts,
     H_cc = seg_sum(torch.einsum("ori,orj->oij", Jc, Jc), lay.cam)
     H_pp = seg_sum(torch.einsum("ori,orj->oij", Jp, Jp), lay.pt)
     g_c, g_p, H_cc, H_pp = reduce(g_c, g_p, H_cc, H_pp)
-    Y = torch.einsum("ori,orj->oij", Jc, Jp)                            # (O, 12, 3)
+    Y = torch.einsum("ori,orj->oij", Jc, Jp).contiguous()               # (O, 12, 3)
     return g_c, g_p, H_cc, H_pp, Y
 
 
-def _schur_matvec(prob: ba_lm.BAProblem, lay: _Layouts, Y, H_cc, H_pp_inv,
-                  u_flat: torch.Tensor, reduce=_local) -> torch.Tensor:
+def _schur_matvec(lay: cuda_schur.SchurLayout, Y, H_cc, H_pp_inv, u_flat: torch.Tensor,
+                  reduce=_local) -> torch.Tensor:
     """S u = Hcc u - W Hpp^-1 W^T u without forming S: two sums over
     observations (``reduce`` completes each over the ranks)."""
     C = H_cc.shape[0]
     u = u_flat.reshape(C, 12)
-    Ytu = torch.einsum("oij,oi->oj", Y, u[prob.obs_cam])                # (O, 3)
-    (WtU,) = reduce(cuda_segsum.seg_sum(Ytu, lay.pt))                   # (L, 3)
+    (WtU,) = reduce(cuda_schur.ytu_sum(Y, u, lay))                      # (L, 3)
     z = torch.einsum("lij,lj->li", H_pp_inv, WtU)
-    (Wz,) = reduce(cuda_segsum.seg_sum(torch.einsum("oij,oj->oi", Y, z[prob.obs_pt]),
-                                       lay.cam))                        # (C, 12)
+    (Wz,) = reduce(cuda_schur.yz_sum(Y, z, lay))                        # (C, 12)
     Hu = torch.einsum("cij,cj->ci", H_cc, u)
     return (Hu - Wz).reshape(-1)
 
 
-def _lm_step_pcg(prob: ba_lm.BAProblem, lay: _Layouts, blocks, lam, cg_iters: int,
+def _lm_step_pcg(prob: ba_lm.BAProblem, lay: cuda_schur.SchurLayout, blocks, lam,
+                 cg_iters: int,
                  cg_tol: float, damping: str = "levenberg", reduce=_local):
     """One damped implicit-Schur PCG solve from prebuilt blocks; ``lam``
     is a float32 scalar. Returns (d_cam (C, 12), d_pt (L, 3))."""
@@ -177,14 +172,11 @@ def _lm_step_pcg(prob: ba_lm.BAProblem, lay: _Layouts, blocks, lam, cg_iters: in
         H_cc = H_cc + lam * eye12 + fixed_c[:, :, None] * eye12
         H_pp = H_pp + float(np.float32(lam) + np.float32(1e-8)) * eye3
     H_pp_inv = _inv3x3(H_pp)                                            # (L, 3, 3)
-    cam_o, pt_o = prob.obs_cam, prob.obs_pt
-    seg_sum = cuda_segsum.seg_sum
-    schur_matvec = functools.partial(_schur_matvec, prob, lay, Y, H_cc, H_pp_inv,
-                                     reduce=reduce)
+    schur_matvec = functools.partial(_schur_matvec, lay, Y, H_cc, H_pp_inv, reduce=reduce)
 
     # W Hpp^-1 g_p for the reduced rhs
     zg = torch.einsum("lij,lj->li", H_pp_inv, g_p)
-    (Wzg,) = reduce(seg_sum(torch.einsum("oij,oj->oi", Y, zg[pt_o]), lay.cam))
+    (Wzg,) = reduce(cuda_schur.yz_sum(Y, zg, lay))
     rhs = -(g_c - Wzg).reshape(-1)
 
     H_cc_inv = torch.linalg.inv(H_cc)                                   # block-Jacobi
@@ -194,7 +186,7 @@ def _lm_step_pcg(prob: ba_lm.BAProblem, lay: _Layouts, blocks, lam, cg_iters: in
 
     d_cam = _pcg(schur_matvec, rhs, precond, cg_iters, cg_tol).reshape(C, 12)
 
-    (WtD,) = reduce(seg_sum(torch.einsum("oij,oi->oj", Y, d_cam[cam_o]), lay.pt))
+    (WtD,) = reduce(cuda_schur.ytu_sum(Y, d_cam, lay))
     d_pt = -torch.einsum("lij,lj->li", H_pp_inv, g_p + WtD)
     return d_cam * prob.cam_free, d_pt
 

@@ -166,7 +166,7 @@ def profile(prob: ba_lm.BAProblem, tag: str, reps: int = 20) -> dict:
     H_pp_inv = distributed._inv3x3(H_pp + 1e-3 * eye3)
     u = torch.ones(C * 12, dtype=cam.dtype, device=dev)
     ms["pcg_schur_matvec"] = timeit_(
-        lambda: distributed._schur_matvec(long, segs, Y, H_cc, H_pp_inv, u), reps)
+        lambda: distributed._schur_matvec(segs, Y, H_cc, H_pp_inv, u), reps)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     for lay_name, seg_lay, index in (("cam", segs.cam, long.obs_cam),

@@ -1,9 +1,11 @@
 """The port's BA scripts on the CPU: ``scripts/exp_ba.py``'s synthetic
 problem against the JAX package's for the same generator (integers and
 the arrays built before any rotation equal, projections within 1e-3 px:
-the two rotations round differently in float32), and ``profile_ba`` and
-``profile_ba_latency`` at a tiny size, with their keys checked."""
+the two rotations round differently in float32), and ``profile_ba``,
+``profile_ba_latency`` and ``profile_pcg_path`` at a tiny size, with their
+keys checked."""
 
+import json
 import os
 import sys
 
@@ -11,7 +13,7 @@ import jax
 import numpy as np
 import pytest
 
-from reconstructor_tpu_torch.scripts import exp_ba, profile_ba, profile_ba_latency
+from reconstructor_tpu_torch.scripts import exp_ba, profile_ba, profile_ba_latency, profile_pcg_path
 
 import torch_parity  # noqa: F401  (two torch threads per worker)
 
@@ -92,3 +94,27 @@ def test_profile_ba_latency_pcg_solver_runs_its_budget():
     res = profile_ba_latency.measure(prob, profile_ba_latency.solver("pcg"), iters=(2,),
                                      repeats=1, rs=())
     assert res["iterations_run"] == {"2": 2} and "s_per_iter" not in res
+
+
+def test_profile_pcg_path_tiny(capsys):
+    """5 rendered views through the PCG-routed path, alone and with
+    ``mesh=`` at a world of one (gloo): one end state; a 10-camera street
+    problem to the noise floor; the PCG pieces of the ``tiny`` problem."""
+    assert profile_pcg_path.main(
+        ["--device", "cpu", "--mesh", "--views", "5", "--height", "192", "--width", "256",
+         "--street-reps", "1", "--street-cams", "10", "--street-points", "2000",
+         "--problems", "tiny", "--reps", "2"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    pcg, mesh = res["path"]["pcg"], res["path"]["mesh"]
+    assert pcg["registered"] == mesh["registered"] == 5
+    assert pcg["ba_calls"]["pcg"] > 0 and pcg["ba_calls"]["dense"] == 0
+    assert mesh["ba_calls"]["distributed"] == pcg["ba_calls"]["pcg"]
+    assert mesh["state_sha256"] == pcg["state_sha256"]
+    # on the CPU the wrappers run their plain versions: no kernel launches
+    assert pcg["launches"] == {"cuda_segsum": 0, "cuda_schur": 0}
+    assert res["street"]["rms_px"] <= 1.1 * 0.5 and len(res["street"]["wall_s"]) == 1
+    tiny = res["pieces"]["tiny"]
+    assert {"pcg_per_iter", "pcg_schur_matvec"} <= set(tiny["ms"])
+    for k in ("matvec", "cg_iteration"):
+        assert tiny[k]["host_ms"] > 0 and tiny[k]["device_ms"] == "not measured"
+    assert tiny["wrapper_host_us"] == {"seg_sum": "not measured", "ytu_sum": "not measured"}

@@ -152,11 +152,12 @@ def test_port_runs_without_jax_pil_or_the_jax_package():
             "reconstructor_tpu_torch.scripts.multiproc_worker",
             "reconstructor_tpu_torch.scripts.run_multiproc_dryrun"} <= set(res["module_names"])
     # the fixed-order segment sums and the stress and BA scripts too
-    assert {"reconstructor_tpu_torch.ba.cuda_segsum",
+    assert {"reconstructor_tpu_torch.ba.cuda_segsum", "reconstructor_tpu_torch.ba.cuda_schur",
             "reconstructor_tpu_torch.scripts.stress_synth",
             "reconstructor_tpu_torch.scripts.stress_report",
             "reconstructor_tpu_torch.scripts.exp_ba", "reconstructor_tpu_torch.scripts.profile_ba",
-            "reconstructor_tpu_torch.scripts.profile_ba_latency"} <= set(res["module_names"])
+            "reconstructor_tpu_torch.scripts.profile_ba_latency",
+            "reconstructor_tpu_torch.scripts.profile_pcg_path"} <= set(res["module_names"])
     # the training, BA-variant and rank-scaling scripts, with optax blocked too
     assert {"reconstructor_tpu_torch.scripts.train_frontend",
             "reconstructor_tpu_torch.scripts.check_ba_variants",
