@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, as a check runs it
     python3 chip_smoke.py --rng-seed 1    # another RANSAC seed in the e2e phases
+    python3 chip_smoke.py --pnp-replay build/pnp_dlt6.npz   # keep the PnP replay inputs
 
 Phases, each printing one or more lines with its elapsed seconds:
 
@@ -109,7 +110,12 @@ Phases, each printing one or more lines with its elapsed seconds:
               views with a normalised ATE under 10% against the rendered
               poses, and launch the kNN kernel. The kernel is then held
               against its plain version on the very inputs the path gave
-              it, and timed there.
+              it, and timed there. Then the estimators the path does not
+              call, on its data: ``estimate_fundamental`` on 64 of its
+              pairs with the F-gate's draws (>= 99.9% of slots as the
+              F-gate), ``estimate_essential`` + ``recover_pose`` on its
+              initial pair, ``solve_pnp_ransac(minimal="dlt6")`` beside
+              P3P on 8 registrations (see ``estimators_on_card``).
 11. learned — the learned path (SuperPoint from
               ``tests/data/superpoint_synth.npz``, the structured 18-layer
               256-wide SuperGlue at 1024 keypoints, 100 Sinkhorn
@@ -192,7 +198,25 @@ Phases, each printing one or more lines with its elapsed seconds:
               the port; ``ate_vs_golden`` on the e2e phase's centres within
               a factor of 2 of its pose ATE, and ``ate_floor_vs_golden``
               under 1%.
-18. stress  — the port's ``scripts/stress_synth.py`` path at full width
+18. distill — the port's ``scripts/distill_fountain.py`` on the rendered
+              views at the script's widths and depth (the teacher the
+              port's SIFT, the bank from views 0-19): finite losses, the
+              last 50 steps' mean loss under 0.8x the first 50's, the
+              float16 npz reloading to the weights saved; ms a step, the
+              phase's seconds, held-out recall and precision at 2 px
+              against the teacher on views 20-24.
+19. train-superglue — the port's ``scripts/train_superglue.py`` on the
+              rendered views at the script's widths and pairs (600 of its
+              1,500 steps): step 0 decodes every validation pair as the
+              structured identity, bit for bit; finite losses that fall;
+              the trained weights decode some pair otherwise than the
+              identity; the trained and the best weights through
+              ``params_to_npz`` / ``params_from_npz`` decode the same
+              matches; the Sinkhorn kernel launched once a ``match_pair``
+              call of ``val_f1`` (the kernels line's ``sinkhorn_val_f1``
+              row: this path's launches, and the kernel timed at its
+              B = 1, K = 512); every validation's F1, ms a step.
+20. stress  — the port's ``scripts/stress_synth.py`` path at full width
               (``eval/synth``'s circular rig, 2,000 points + 128 clutter
               slots a view, 128-D descriptors, K = 2,176) at the script's
               100 views (4,950 pairs), autosaving every 50 views (users'
@@ -210,11 +234,11 @@ Phases, each printing one or more lines with its elapsed seconds:
               views ends in the uninterrupted run's state bit for bit; then
               ``scripts/stress_report.py`` on the final autosave gives the
               run's counts and ATE.
-19. ba-profile — the port's ``scripts/profile_ba.py`` on the saved
+21. ba-profile — the port's ``scripts/profile_ba.py`` on the saved
               fountain BA problem (``out/ba_problem_final.npz``): every piece
               of the dense and PCG solvers per call, the segment-sum kernel
               beside ``index_add_``, each full solve's device-busy share.
-20. train   — SuperPoint trained on the card by the port's
+22. train   — SuperPoint trained on the card by the port's
               ``scripts/train_frontend.py`` at the JAX script's defaults
               (1,500 steps of 2 scenes, 24 scenes x 6 views at 160 px;
               autograd, cuDNN, Adam): ms a step, the wall, a finite loss
@@ -229,7 +253,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               ``tests/data/superpoint_synth.npz`` runs the same scenes and
               seeds and is printed beside them, not gated. The weights'
               sha256 says whether training repeated.
-21. ba-variants — the dense LM's Schur products at the three precisions
+23. ba-variants — the dense LM's Schur products at the three precisions
               against float64 ('highest' and 'high' within 1e-6 of the
               operands' scale, 'default''s one bf16 pass coarser); then
               the port's ``scripts/check_ba_variants.py``
@@ -238,7 +262,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               three Schur precisions, w16, hcc16; 3 warm solves a row):
               'high' must end within 1e-3 relative of 'highest''s final
               cost on both; the bf16-storage rows are recorded.
-22. scaling — the port's ``scripts/bench_scaling.py`` (raw and gated kNN
+24. scaling — the port's ``scripts/bench_scaling.py`` (raw and gated kNN
               pairs/s, distributed BA seconds at 32 images x 512 keypoints
               and 25 cameras x 5,000 points) and ``diag_scaling.py`` with
               worlds of 1 and 2 gloo ranks sharing the card: the 2-rank
@@ -822,6 +846,9 @@ def phase_sinkhorn(dev):
 STEP = 2.0 ** -17   # the packed kernels' distance step
 
 
+TRACE_SESSIONS = 3   # profiler sessions trace_calls tries before it gives up
+
+
 def trace_calls(fn, iters: int = 20) -> dict:
     """``iters`` calls of ``fn`` (after a warm one) under a torch.profiler
     trace, each synchronised inside its own window: a call's host
@@ -832,19 +859,28 @@ def trace_calls(fn, iters: int = 20) -> dict:
     launched inside the windows: the trace's card timestamps can drift
     from the host's by more than a kernel of a few microseconds lasts, so
     the same time clipped to the windows (``clipped_busy_ms``) can miss
-    it."""
+    it. A session whose trace holds no device event at all (CUPTI now
+    and then delivers none; seen in the segsum phases) is traced again,
+    up to ``TRACE_SESSIONS`` in all; the check then holds the last
+    session."""
     import torch
     from reconstructor_tpu_torch.utils import profiling
     fn()
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        with profiling.trace(tmp, device="cuda"):
-            for _ in range(iters):
-                with profiling.annotate("call"):
-                    fn()
-                    torch.cuda.synchronize()
-        st = profiling.stage_summary(os.path.join(tmp, profiling.TRACE_FILE), ["call"],
-                                     top=8)["call"]
+    for session in range(1, TRACE_SESSIONS + 1):
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp, device="cuda"):
+                for _ in range(iters):
+                    with profiling.annotate("call"):
+                        fn()
+                        torch.cuda.synchronize()
+            summary = profiling.stage_summary(os.path.join(tmp, profiling.TRACE_FILE), ["call"],
+                                              top=8)
+        st = summary["call"]
+        if summary["all"]["busy_s"] is not None:
+            break
+        log("trace", f"session {session} of {TRACE_SESSIONS}: no device event in the trace "
+                     f"({st['launches']} launches)")
     check(st["launched_busy_s"],
           f"trace_calls: no device time traced for the calls' launches "
           f"({st['launches']} launches, clipped busy {st['busy_s']} s)")
@@ -1335,7 +1371,7 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
     return rec, state, launches, summary
 
 
-def phase_e2e(dev, tmp: str, scene, imgs, cfg):
+def phase_e2e(dev, tmp: str, scene, imgs, cfg, pnp_replay: str = None):
     """The default path; then the kNN kernel on the inputs it was given."""
     import torch
     rec, state, launches, summary = run_path(dev, tmp, "e2e", scene, imgs, cfg)
@@ -1351,7 +1387,195 @@ def phase_e2e(dev, tmp: str, scene, imgs, cfg):
     res, _ = compare_knn(desc16, mask_d, chunk, exact=False, tol=1e-5,
                          min_match_agree=0.999, label="main-path inputs bf16")
     timing = time_knn(desc16, mask_d, chunk, "main-path inputs")
+    estimators_on_card(dev, rec, state, scene, replay=pnp_replay)
     return launches["knn_top2"], res, timing, summary, state
+
+
+def rotation_gap_deg(Ra, Rb) -> float:
+    """The angle between two rotations, 2 asin(|Ra - Rb|_F / sqrt 8), in
+    float64: exact near zero, where the trace formula's arccos bottoms out
+    at ~0.02 degrees for float32 matrices."""
+    import numpy as np
+    d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64)) / np.sqrt(8.0)
+    return float(np.degrees(2.0 * np.arcsin(min(d, 1.0))))
+
+
+# DLT6 beside P3P (estimators_on_card), each bound about twice (the
+# posed count: under) or ten times (the re-polished gap) the readings on
+# the card and on the CPU, both packages
+DLT6_POSED_MIN = 3           # of the 8 views; 5 posed in every reading
+DLT6_POSE_DEG = 3.0          # posed views' poses: readings up to 1.59 deg
+DLT6_POSE_REL = 0.06         # ... and 3.0% of the distance
+DLT6_REPOLISH_DEG = 2e-3     # polished again over the DLT6's inliers: readings
+DLT6_REPOLISH_REL = 5e-5     # up to 1.1e-4 deg and 2.0e-6 of the distance
+
+
+def estimators_on_card(dev, rec, state, scene, max_pairs: int = 64, max_views: int = 8,
+                       replay: str = None) -> dict:
+    """The estimators the path does not call, on the card, on the default
+    path's own data (a few seconds):
+    (1) ``epipolar.estimate_fundamental`` on the run's pairs that the
+        F-gate gates (>= ``min_matches_for_filter`` kNN matches; the first
+        ``max_pairs``), each with the F-gate's draws for that pair: its
+        inlier masks agree with ``fgate.filter_pairs_scalarized``'s (at
+        stride 1, as ``tests/test_features_matching.py:270-290`` holds the
+        JAX package) on >= 99.9% of the slots;
+    (2) ``estimate_essential`` then ``recover_pose`` on the run's initial
+        pair (its highest match count: neighbours 1.75 degrees apart, so
+        the translation's direction is ill-posed and only printed): most
+        matches inliers, most inliers in front of both cameras, and the
+        rotation within 5 degrees of the rendered truth (E's four
+        decompositions differ by half turns);
+    (3) ``pnp.solve_pnp_ransac(minimal="dlt6")`` beside the P3P default on
+        the 2D-3D matches of the ``max_views`` lowest-numbered
+        registrations (~0.5 s a view for the two), each on draws made
+        here (``replay`` names an npz that keeps them with the inputs and
+        both results, for ``tests/replay_pnp_dlt6.py``, which gives the
+        JAX package the same draws). The run's landmarks are nearly
+        coplanar and far (the smallest singular value of their spread is
+        1-4% of the largest), and there the 12 x 12 DLT normal matrix
+        (unnormalised coordinates: condition ~3e8) yields poor minimal
+        poses, in both packages: the best hypothesis holds 5-20 inliers
+        of ~900 where P3P's holds them all. The Gauss-Newton polish is
+        weighted by that hypothesis's inliers, so it fits the pose to
+        those few points; the final recount then admits nearly all
+        matches on some views (posed: DLT6 keeps >= 90% of P3P's
+        inliers), and the pose stays off P3P's by up to ~1.6 degrees.
+        Gates: at least ``DLT6_POSED_MIN`` views posed; on each posed
+        view the inlier masks agree on >= 99%, the poses within
+        ``DLT6_POSE_DEG`` and ``DLT6_POSE_REL`` of the distance, and the
+        two poses, each polished again over the DLT6's final inliers,
+        within ``DLT6_REPOLISH_DEG`` and ``DLT6_REPOLISH_REL`` (the gap is
+        the polish's weighting, not another minimum)."""
+    import numpy as np
+    import torch
+    from reconstructor_tpu_torch.geometry import epipolar, fgate, pnp, ransac
+    from reconstructor_tpu_torch.matching import cuda_knn
+    cfg = rec.config
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+
+    # (1) the F-gate's pairs: kernel 1's matches at the run's settings
+    desc_d, mask_d, xy_d = rec._device_frontend(state)
+    chunk = all_pairs(state.num_images, dev)
+    midx, mmask = cuda_knn.match_all_pairs_fused(
+        desc_d, mask_d, chunk, ratio_thresh=cfg.ratio_thresh, cross_check=cfg.cross_check,
+        compute_dtype=cfg.knn_compute_dtype)
+    K = desc_d.shape[1]
+    pc = chunk.long()
+    gated = torch.nonzero(mmask.sum(1) >= cfg.min_matches_for_filter)[:max_pairs, 0]
+    p1 = xy_d[pc[gated, 0]]
+    p2 = xy_d[pc[gated, 1][:, None], torch.clamp(midx[gated].long(), 0, K - 1)]
+    m = mmask[gated]
+    H = cfg.fundamental_num_hypotheses
+    pos = ransac.raw_draws((len(gated), H, 8), dev, gen)
+    gate = fgate.filter_pairs_scalarized(p1, p2, m, num_hypotheses=H,
+                                         thresh_px=cfg.fundamental_thresh_px, pos=pos)
+    thr = cfg.fundamental_thresh_px ** 2
+    generic = torch.stack([
+        (epipolar.sampson_distance(epipolar.estimate_fundamental(
+            p1[b], p2[b], m[b], thresh_px=cfg.fundamental_thresh_px, num_hypotheses=H,
+            pos=pos[b])[0], p1[b], p2[b]) < thr) & m[b] for b in range(len(gated))])
+    agree = (gate == generic)[m].double().mean().item()
+    out["fundamental"] = {"pairs": len(gated), "slots": int(m.sum()),
+                          "inliers_gate": int(gate.sum()), "inliers_estimate": int(generic.sum()),
+                          "agree": agree}
+
+    # (2) the initial pair through E and cheirality
+    (i1, i2), mt = max(state.matches.items(), key=lambda kv: (kv[1] >= 0).sum())
+    sel = np.where(mt >= 0)[0]
+    uv1, uv2 = rec._t(state.xy[i1, sel]), rec._t(state.xy[i2, mt[sel]])
+    intr1, intr2 = rec._t(state.intrinsics[i1]), rec._t(state.intrinsics[i2])
+    E, inl, cnt = epipolar.estimate_essential(
+        uv1, uv2, intr1, intr2, rec._t(np.ones(sel.size, bool)),
+        thresh_px=cfg.essential_thresh_px, num_hypotheses=cfg.ransac_num_hypotheses,
+        generator=gen)
+    pose, counts = epipolar.recover_pose(E, uv1, uv2, intr1, intr2, inl)
+    pose = pose.cpu().numpy()
+    gt = scene["poses"][i2] @ np.linalg.inv(scene["poses"][i1])
+    t_gt = gt[:3, 3] / np.linalg.norm(gt[:3, 3])
+    rot_err = rotation_gap_deg(pose[:3, :3], gt[:3, :3])
+    out["essential"] = {"pair": [int(i1), int(i2)], "matches": int(sel.size),
+                        "inliers": int(cnt), "cheirality_counts": counts.cpu().tolist(),
+                        "rotation_err_deg": rot_err,
+                        "translation_cos": float(pose[:3, 3] @ t_gt)}
+
+    # (3) registrations by DLT6 beside P3P, on draws made here
+    centre = lambda T: -T[:3, :3].T @ T[:3, 3]  # noqa: E731
+    H_pnp, iters = cfg.pnp_num_hypotheses, cfg.pnp_refine_iters
+    views, kept = [], {}
+    for k, img in enumerate(sorted(state.registered)[:max_views]):
+        feat = np.where(state.feat2lm[img] >= 0)[0]
+        lm = state.feat2lm[img][feat]
+        args = (rec._t(state.lm_xyz[lm]), rec._t(state.xy[img, feat]),
+                rec._t(state.intrinsics[img]), rec._t(np.ones(feat.size, bool)))
+        pos = {m: ransac.raw_draws((H_pnp, n), dev, gen) for m, n in (("p3p", 3), ("dlt6", 6))}
+        res = {m: pnp.solve_pnp_ransac(*args, thresh_px=cfg.max_projection_error,
+                                       num_hypotheses=H_pnp, refine_iters=iters, pos=pos[m],
+                                       minimal=m)[:2] for m in pos}
+        w = res["dlt6"][1].to(args[0].dtype)
+        polished = [pnp._gauss_newton_refine(res[m][0], *args[:3], w, iters).cpu().numpy()
+                    for m in pos]
+        (a, ia), (b, ib) = ([x.cpu().numpy() for x in res[m]] for m in pos)
+        dist = float(np.linalg.norm(centre(a) - state.lm_xyz[lm].mean(0)))
+        rms = [float(pnp._reproj_residual_sq(rec._t(T), *args[:3])[rec._t(ia)].mean()) ** 0.5
+               for T in (a, b)]
+        views.append({"view": int(img), "matches": int(feat.size),
+                      "inliers_p3p": int(ia.sum()), "inliers_dlt6": int(ib.sum()),
+                      "inlier_agree": float((ia == ib).mean()),
+                      "rms_px_p3p": rms[0], "rms_px_dlt6": rms[1],
+                      "rotation_diff_deg": rotation_gap_deg(a[:3, :3], b[:3, :3]),
+                      "centre_diff_rel": float(np.linalg.norm(centre(a) - centre(b))) / dist,
+                      "repolished_rotation_diff_deg": rotation_gap_deg(polished[0][:3, :3],
+                                                                       polished[1][:3, :3]),
+                      "repolished_centre_diff_rel": float(np.linalg.norm(
+                          centre(polished[0]) - centre(polished[1]))) / dist})
+        kept.update({f"view{k}": np.int64(img), f"X{k}": state.lm_xyz[lm].astype(np.float32),
+                     f"uv{k}": state.xy[img, feat].astype(np.float32),
+                     f"intr{k}": np.asarray(state.intrinsics[img], np.float32),
+                     **{f"{x}_{m}{k}": v.cpu().numpy() for m in pos
+                        for x, v in (("pos", pos[m]), ("pose", res[m][0]),
+                                     ("inliers", res[m][1]))}})
+    if replay:
+        os.makedirs(os.path.dirname(os.path.abspath(replay)), exist_ok=True)
+        np.savez_compressed(replay, thresh_px=np.float64(cfg.max_projection_error),
+                            refine_iters=np.int64(iters), **kept)
+        log("e2e", f"PnP inputs, draws and results of {len(views)} views written to {replay}")
+    posed = [v for v in views if v["inliers_dlt6"] >= 0.9 * v["inliers_p3p"]]
+    worst = lambda key, vs: max((v[key] for v in vs), default=None)  # noqa: E731
+    out["pnp"] = {"views": len(views), "dlt6_posed": [v["view"] for v in posed],
+                  "inliers_p3p_dlt6": [[v["inliers_p3p"], v["inliers_dlt6"]] for v in views],
+                  "posed_max_rotation_diff_deg": worst("rotation_diff_deg", posed),
+                  "posed_max_centre_diff_rel": worst("centre_diff_rel", posed),
+                  "posed_min_inlier_agree": min((v["inlier_agree"] for v in posed),
+                                                default=None),
+                  "posed_rms_px_p3p_dlt6": [[v["rms_px_p3p"], v["rms_px_dlt6"]] for v in posed],
+                  "rotation_diff_deg": [v["rotation_diff_deg"] for v in views],
+                  "posed_repolished_max_rotation_diff_deg": worst("repolished_rotation_diff_deg",
+                                                                  posed),
+                  "posed_repolished_max_centre_diff_rel": worst("repolished_centre_diff_rel",
+                                                                posed)}
+    out["seconds"] = time.perf_counter() - t0
+    log("e2e", "estimators on the card: " + json.dumps(out))
+    check(agree >= 0.999, f"estimate_fundamental agrees with the F-gate on {agree:.5f} < 0.999")
+    e = out["essential"]
+    check(e["inliers"] > e["matches"] // 2, "estimate_essential: too few inliers")
+    check(max(e["cheirality_counts"]) > 0.9 * e["inliers"],
+          "recover_pose: too few inliers in front of both cameras")
+    check(e["rotation_err_deg"] < 5.0, "recover_pose: rotation off the truth")
+    p = out["pnp"]
+    check(len(posed) >= DLT6_POSED_MIN,
+          f"PnP dlt6: {len(posed)} of {len(views)} registrations posed")
+    check(all(v["inlier_agree"] >= 0.99 for v in posed),
+          "PnP dlt6 vs p3p: the two select other correspondences")
+    check(p["posed_max_rotation_diff_deg"] <= DLT6_POSE_DEG
+          and p["posed_max_centre_diff_rel"] <= DLT6_POSE_REL,
+          "PnP dlt6 vs p3p: a posed view's pose is off P3P's")
+    check(p["posed_repolished_max_rotation_diff_deg"] <= DLT6_REPOLISH_DEG
+          and p["posed_repolished_max_centre_diff_rel"] <= DLT6_REPOLISH_REL,
+          "PnP dlt6 vs p3p: polished over the same inliers, the poses still differ")
+    return out
 
 
 def phase_learned(dev, tmp: str, scene, imgs, cfg):
@@ -2491,6 +2715,180 @@ def phase_train(dev, tmp: str, here: str) -> dict:
     return summary
 
 
+DISTILL_STEPS = 1200       # the script's default
+DISTILL_PAIRS = 400        # the script's default
+SUPERGLUE_STEPS = 600      # the script's default: 1500 (~64 ms a step on an H100)
+SUPERGLUE_PAIRS = 200      # the script's default
+
+
+def phase_distill(dev, tmp: str, imgs, steps: int = DISTILL_STEPS,
+                  pairs: int = DISTILL_PAIRS) -> dict:
+    """The port's ``scripts/distill_fountain.py`` on the rendered 25 views
+    in place of the photographs, at the script's widths (CROP 160, 48
+    keypoints a pair, batch 8, lr 1.5e-3) and depth (1,200 steps, 400
+    crop pairs; ``steps`` and ``pairs`` cut it): the teacher
+    (the port's SIFT, 1024 keypoints, the config's settings) on all 25
+    views, the bank from views 0-19, ``train`` under cuDNN's deterministic
+    algorithms, then recall and precision at 2 px against the teacher on
+    views 20-24 (printed, not gated). Gates: finite losses, the mean loss
+    of the last 50 steps under 0.8x that of the first 50, and the float16
+    npz ``save_params`` writes reloading (``superpoint.params_from_npz``)
+    to the saved weights rounded to float16."""
+    import numpy as np
+    import torch
+    from reconstructor_tpu_torch.config import ReconstructorConfig
+    from reconstructor_tpu_torch.features import superpoint as sp
+    from reconstructor_tpu_torch.scripts import distill_fountain as df
+    t0 = time.perf_counter()
+    log("distill", f"depth: {steps} steps (script: 1200), {pairs} crop pairs (script: 400); "
+                   f"widths as the script: CROP {df.CROP}, {df.M_KP} keypoints a pair, batch 8, "
+                   f"lr 1.5e-3")
+    gray, shapes, grays = df.gray_crops(imgs)
+    t = time.perf_counter()
+    t_xy, t_mask = df.teacher(gray, shapes, ReconstructorConfig(), dev)
+    teacher_s = time.perf_counter() - t
+    t = time.perf_counter()
+    bank = df.to_device(df.build_bank(grays[:20], t_xy[:20], t_mask[:20], pairs,
+                                      np.random.default_rng(0)), dev)
+    bank_s = time.perf_counter() - t
+    res = df.train(bank, steps, 1.5e-3, 8, 0)
+    losses = res["losses"]
+    first, last = float(losses[:50, 0].mean()), float(losses[-50:, 0].mean())
+    recall, precision = df.heldout_recall(res["net"], gray, shapes, t_xy, t_mask)
+    path = os.path.join(tmp, "superpoint_distilled.npz")
+    df.save_params(res["net"], path)
+    back = sp.params_from_npz(path).state_dict()
+    saved = {k: v.detach().cpu().half().float() for k, v in res["net"].state_dict().items()}
+    summary = {"teacher_kps_per_view": float(t_mask.sum(1).mean()), "teacher_s": teacher_s,
+               "bank_s": bank_s, "steps": steps, "train_wall_s": res["wall_s"],
+               "ms_per_step": res["wall_s"] / steps * 1e3, "loss_first50": first,
+               "loss_last50": last, "det_last50": float(losses[-50:, 1].mean()),
+               "desc_last50": float(losses[-50:, 2].mean()),
+               "teacher_recall_2px_heldout": recall, "teacher_precision_2px_heldout": precision,
+               "npz_bytes": os.path.getsize(path), "phase_s": time.perf_counter() - t0}
+    log("distill", json.dumps(summary))
+    check(np.isfinite(losses).all(), "distill: a non-finite loss")
+    check(last < 0.8 * first, f"distill: the loss did not fall ({first:.4f} -> {last:.4f})")
+    check(set(back) == set(saved) and all(torch.equal(back[k], saved[k]) for k in saved),
+          "distill: the saved float16 weights reload to other values")
+    del bank
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_train_superglue(dev, tmp: str, here: str, imgs, steps: int = SUPERGLUE_STEPS,
+                          pairs: int = SUPERGLUE_PAIRS) -> dict:
+    """The port's ``scripts/train_superglue.py`` on the rendered 25 views in
+    place of the photographs, at the script's widths (CROP 320, 512
+    keypoints, 4 layers, batch 8, 50 Sinkhorn iterations, lr 2e-4) and its
+    200 crop pairs, at 600 of its 1,500 steps (the one cut, for the
+    smoke's time): the bank from ``tests/data/superpoint_fountain.npz``, then
+    ``train`` with the Sinkhorn kernel's launch counter set to 0 just
+    before and read just after (``val_f1`` decodes each held-out pair
+    with ``match_pair``: one kernel launch a pair a validation; every
+    validation's F1 is printed). Gates: at step 0 every validation pair's
+    matches equal the structured identity's (18 layers) bit for bit;
+    finite losses; the mean loss of the last 50 steps under that of the
+    first 50; the last (trained) weights decode other matches than the
+    identity on some validation pair; the trained and the best weights
+    through ``params_to_npz`` and ``params_from_npz`` each decode the same
+    matches; the kernel's launches equal the ``match_pair`` calls. Then
+    the kernel on one validation pair's scores under the trained weights
+    (B = 1, K = 512, 100 iterations: the shape ``val_f1`` gives it)
+    against its plain version, and timed. Returns the summary with the
+    launches and the kernel's figures."""
+    import numpy as np
+    import torch
+    from reconstructor_tpu_torch.features import superpoint as sp
+    from reconstructor_tpu_torch.matching import cuda_sinkhorn, superglue as sg
+    from reconstructor_tpu_torch.scripts import distill_fountain as df
+    from reconstructor_tpu_torch.scripts import train_superglue as ts
+    t0 = time.perf_counter()
+    log("train-superglue", f"depth: {steps} steps (script: 1500), {pairs} crop pairs "
+                           f"(script: 200); widths as the script: CROP {ts.CROP}, 512 keypoints, "
+                           f"4 layers, batch 8, 50 Sinkhorn iterations, lr 2e-4")
+    _, _, grays = df.gray_crops(imgs)
+    sp_net = sp.params_from_npz(os.path.join(here, "tests", "data",
+                                             "superpoint_fountain.npz")).to(dev)
+    t = time.perf_counter()
+    bank = ts.build_bank(grays, sp_net, pairs, 512, np.random.default_rng(0))
+    bank_s = time.perf_counter() - t
+    n_bank = bank["d0"].shape[0]
+    trn, val = ts.split_bank(bank, dev)
+    n_val = val["d0"].shape[0]
+    shape = torch.tensor([ts.CROP, ts.CROP], dtype=torch.int32, device=dev)
+
+    def decode_all(net):
+        return [sg.match_pair(net, *(val[k][i] for k in ("d0", "d1", "x0", "x1", "s0", "s1")),
+                              val["m0"][i].bool(), val["m1"][i].bool(), shape, shape,
+                              sinkhorn_iters=100, score_thresh=0.5) for i in range(n_val)]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for pa, pb in zip(a, b) for x, y in zip(pa, pb))
+
+    def round_trip_same(net, name):
+        path = os.path.join(tmp, name)
+        sg.params_to_npz(net, path)
+        return same(decode_all(net), decode_all(sg.params_from_npz(path).to(dev)))
+
+    net = ts.small_identity_params(4).to(dev)
+    step0 = decode_all(net)
+    identity_same = same(step0, decode_all(sg.structured_identity_params().to(dev)))
+    cuda_sinkhorn.reset_launches()
+    res = ts.train(net, trn, val, steps, 2e-4, 8, 50)
+    launches = cuda_sinkhorn.LAUNCHES
+    losses = res["losses"]
+    first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+    for step, f1, prec, rec in res["validations"]:
+        log("train-superglue", f"validation at step {step}: F1 {f1:.4f} (P {prec:.4f} "
+                               f"R {rec:.4f})")
+    # the kernel at the shape val_f1 gives it (B = 1, K = 512, 100
+    # iterations), held against its plain version and timed
+    pair = lambda k0, k1: torch.stack([val[k0][0], val[k1][0]])  # noqa: E731
+    with torch.no_grad():
+        scores, m0, m1 = sg.pair_scores(
+            res["net"], pair("d0", "d1"), pair("x0", "x1"), pair("s0", "s1"),
+            pair("m0", "m1").bool(), shape.expand(2, 2), torch.tensor([[0, 1]], device=dev))
+    alpha = res["net"].bin_score.detach()
+    kernel = {**compare_sinkhorn(scores, alpha, m0, m1, 100, "train-superglue val_f1 pair",
+                                 marginal_tol=None),
+              **time_sinkhorn(scores, alpha, m0, m1, 100, "train-superglue val_f1 pair")}
+    trained = decode_all(res["net"])
+    trained_differs = sum(not all(torch.equal(x, y) for x, y in zip(a, b))
+                          for a, b in zip(trained, step0))
+    trained_same = round_trip_same(res["net"], "superglue_last.npz")
+    best_same = round_trip_same(res["best"], "superglue_best.npz")
+    summary = {"bank_pairs": n_bank, "train_pairs": n_bank - n_val, "val_pairs": n_val,
+               "bank_s": bank_s, "steps": steps, "train_wall_s": res["wall_s"],
+               "ms_per_step": res["wall_s"] / steps * 1e3, "loss_first50": first,
+               "loss_last50": last, "identity_f1": res["identity"][0],
+               "identity_precision": res["identity"][1], "identity_recall": res["identity"][2],
+               "best_f1": res["best_f1"], "would_save": res["best_f1"] > res["identity"][0],
+               "step0_equals_structured_identity": identity_same,
+               "validation_f1": [v[1] for v in res["validations"]],
+               "trained_pairs_decoded_otherwise": trained_differs,
+               "npz_round_trip_same_matches": {"trained": trained_same, "best": best_same},
+               "val_calls": res["val_calls"],
+               "sinkhorn_launches": launches, "phase_s": time.perf_counter() - t0,
+               "kernel_val_pair": {k: kernel[k] for k in ("max_abs_err", "match_agree", "ms",
+                                                          "plain_ms", "bound_ms", "bound_by",
+                                                          "library_ms")}}
+    log("train-superglue", json.dumps(summary))
+    check(identity_same, "train-superglue: step 0 does not decode as the structured identity")
+    check(np.isfinite(losses).all(), "train-superglue: a non-finite loss")
+    check(last < first, f"train-superglue: the loss did not fall ({first:.4f} -> {last:.4f})")
+    check(trained_differs > 0, "train-superglue: the trained weights decode every validation "
+                               "pair as the identity does")
+    check(trained_same and best_same,
+          "train-superglue: params_to_npz -> params_from_npz decodes otherwise")
+    check(launches == res["val_calls"] * n_val > 0,
+          f"train-superglue: {launches} Sinkhorn launches for {res['val_calls']} x {n_val} "
+          f"match_pair calls")
+    del bank, val, trn
+    torch.cuda.empty_cache()
+    return summary
+
+
 def phase_ba_variants(dev) -> dict:
     """The port's ``scripts/check_ba_variants.py`` on the card (the saved
     fountain problem and the 100 x 40,000 synthetic one): 'high' must
@@ -2601,6 +2999,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rng-seed", type=int, default=0,
                     help="the reconstructor's RANSAC seed (config.rng_seed) in the e2e phases")
+    ap.add_argument("--pnp-replay", default=None, metavar="NPZ",
+                    help="also write the e2e phase's PnP inputs, draws and results here, for "
+                         "tests/replay_pnp_dlt6.py")
     args = ap.parse_args(argv)
 
     import torch
@@ -2658,7 +3059,7 @@ def main(argv=None) -> int:
     kernels = []
     with tempfile.TemporaryDirectory() as tmp:
         launches, res, t, summary, e2e_state = phase_e2e(
-            dev, tmp, scene, imgs, ReconstructorConfig(rng_seed=args.rng_seed))
+            dev, tmp, scene, imgs, ReconstructorConfig(rng_seed=args.rng_seed), args.pnp_replay)
         e2e_ate = summary["ate_normalized"]
         kernels.append({"name": "knn_top2", "route": "cuda",
                         "source": "reconstructor_tpu_torch/" + cuda_knn.SOURCE,
@@ -2720,6 +3121,15 @@ def main(argv=None) -> int:
         phase_mesh(dev, tmp, here, scene, imgs, pcg_cfg, (pcg_summary, pcg_state), learned_run)
         phase_resume(dev, tmp, scene, imgs, orb_cfg.with_(checkpoint_every_views=3))
         phase_ate(tmp, scene, e2e_state, e2e_ate)
+        phase_distill(dev, tmp, imgs)
+        sg_train = phase_train_superglue(dev, tmp, here, imgs)
+        kernels.append({"name": "sinkhorn_val_f1", "route": "cuda",
+                        "source": "reconstructor_tpu_torch/" + cuda_sinkhorn.SOURCE,
+                        "replaces": cuda_sinkhorn.REPLACES,
+                        "launches": sg_train["sinkhorn_launches"],
+                        **{k: sg_train["kernel_val_pair"][k]
+                           for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}})
         del scene, imgs, e2e_state, pcg_state, learned_run
         torch.cuda.empty_cache()
         phase_stress(dev, tmp)

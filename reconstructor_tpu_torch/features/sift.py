@@ -50,6 +50,25 @@ class Features(NamedTuple):
     mask: torch.Tensor     # (..., K) bool
 
 
+def gaussian_kernel1d(sigma: float, radius: int, dtype=torch.float32,
+                      device=None) -> torch.Tensor:
+    """Normalised Gaussian taps at -radius..radius."""
+    x = torch.arange(-radius, radius + 1, dtype=dtype, device=device)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    return k / torch.sum(k)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable, zero-padded Gaussian blur of an (N, H, W) batch, the
+    taps truncated at 3 sigma (the conv chain the band matrices below
+    compose)."""
+    radius = max(1, int(math.ceil(3.0 * sigma)))
+    k = gaussian_kernel1d(sigma, radius, img.dtype, img.device)
+    out = F.conv2d(img[:, None], k.reshape(1, 1, 1, -1), padding=(0, radius))
+    out = F.conv2d(out, k.reshape(1, 1, -1, 1), padding=(radius, 0))
+    return out[:, 0]
+
+
 @functools.lru_cache(maxsize=8)
 def _blur_band_matrices(n: int, num_scales: int, sigma0: float,
                         scales_per_octave: int) -> np.ndarray:

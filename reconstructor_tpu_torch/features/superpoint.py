@@ -70,6 +70,16 @@ class SuperPointNet(nn.Module):
         return logits.permute(0, 2, 3, 1), desc.permute(0, 2, 3, 1)
 
 
+def forward(net: SuperPointNet, gray: torch.Tensor):
+    """Network forward. gray: (N, H, W) float32 in [0, 1] (the reference's
+    /255 prep, FeatureSuperPoint.cpp:265-288), H and W multiples of 8.
+
+    Returns (logits (N, H/8, W/8, 65), desc_raw (N, H/8, W/8, 256)) in the
+    JAX package's channels-last layout; differentiable.
+    """
+    return net(gray)
+
+
 def init_params(generator: Optional[torch.Generator] = None) -> SuperPointNet:
     """He-initialised weights (normal * sqrt(2 / fan_in)), zero biases."""
     net = SuperPointNet()

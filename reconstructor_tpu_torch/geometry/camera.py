@@ -101,3 +101,10 @@ def reprojection_error_l1(intr: torch.Tensor, pts_cam: torch.Tensor,
     """|du| + |dv| per point (SequentialReconstructor.cpp:852-867)."""
     uv = project(intr, pts_cam)
     return torch.sum(torch.abs(uv - uv_observed), dim=-1)
+
+
+def focal_mm_to_px(focal_mm: float, img_dim: float, fov_degrees: float) -> float:
+    """35mm-style focal conversion (utils.cpp:152-163, with its pi =
+    3.1415 and, as there, ``focal_mm`` unused)."""
+    fov_radians = fov_degrees * 3.1415 / 180.0
+    return img_dim / (2.0 * math.tan(fov_radians / 2.0))

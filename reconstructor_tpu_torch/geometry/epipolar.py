@@ -106,8 +106,87 @@ def sampson_distance(M: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor) ->
     return (e * e) / torch.clamp(denom, min=1e-12)
 
 
+def estimate_fundamental(pts1: torch.Tensor, pts2: torch.Tensor, mask: torch.Tensor,
+                         thresh_px: float = 3.0, num_hypotheses: int = 2048,
+                         generator: Optional[torch.Generator] = None,
+                         pos: Optional[torch.Tensor] = None):
+    """RANSAC fundamental matrix (GeometricFilter.cpp:39-61 equivalent).
+
+    The Sampson distance is compared with thresh_px^2. ``pos``: optional
+    (H, 8) raw draws (see geometry.ransac). Returns (F, inlier_mask,
+    num_inliers).
+    """
+    thresh = thresh_px * thresh_px
+    solver = lambda p1, p2: _eight_point(p1, p2, rank2_project=True, essential=False)  # noqa: E731
+    F, inl, cnt = ransac.ransac(
+        (pts1, pts2), mask, solver, sampson_distance, sample_size=8,
+        num_hypotheses=num_hypotheses, inlier_thresh=thresh, generator=generator, pos=pos)
+    return _refit_if_better(F, inl, cnt, pts1, pts2, mask, thresh, essential=False)
+
+
+def _refit_if_better(M_best, inl_best, cnt_best, pts1, pts2, mask, thresh,
+                     essential: bool):
+    """All-inlier least-squares refit, kept only if it scores at least as
+    many inliers as the RANSAC-best minimal model (in float32 the refit's
+    9x9 nullspace can come out worse than the clean minimal solve)."""
+    M_refit = _refit(pts1, pts2, inl_best, essential=essential)
+    inl_refit = (sampson_distance(M_refit, pts1, pts2) < thresh) & mask
+    cnt_refit = torch.sum(inl_refit)
+    better = cnt_refit >= cnt_best
+    return (torch.where(better, M_refit, M_best), torch.where(better, inl_refit, inl_best),
+            torch.maximum(cnt_refit, cnt_best))
+
+
+def _refit(pts1, pts2, mask, essential: bool) -> torch.Tensor:
+    """Masked least-squares 8-point refit over all inliers, with a
+    weighted Hartley normalisation."""
+    w = mask.to(pts1.dtype)[:, None]
+    wsum = torch.clamp(torch.sum(w), min=1.0)
+    c1 = torch.sum(pts1 * w, dim=0) / wsum
+    c2 = torch.sum(pts2 * w, dim=0) / wsum
+    s1 = math.sqrt(2.0) / torch.clamp(
+        torch.sum(torch.linalg.norm(pts1 - c1, dim=-1) * w[:, 0]) / wsum, min=1e-12)
+    s2 = math.sqrt(2.0) / torch.clamp(
+        torch.sum(torch.linalg.norm(pts2 - c2, dim=-1) * w[:, 0]) / wsum, min=1e-12)
+    p1n = (pts1 - c1) * s1
+    p2n = (pts2 - c2) * s2
+    x1, y1 = p1n[:, 0], p1n[:, 1]
+    x2, y2 = p2n[:, 0], p2n[:, 1]
+    ones = torch.ones_like(x1)
+    A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, ones], dim=-1) * w
+    M = smallest_eigvec(A.T @ A).reshape(3, 3)
+    T1 = _hartley_T(c1, s1)
+    T2t = _hartley_T(c2, s2).T
+    if essential:
+        M = _essential_svd_project(T2t @ M @ T1)
+    else:
+        # rank-2 projection in the normalized frame (see _eight_point)
+        M = T2t @ project_rank2(M) @ T1
+    return _fro_normalize(M)
+
+
 def _mean_focal(intr1, intr2):
     return (intr1[cam.FX] + intr1[cam.FY] + intr2[cam.FX] + intr2[cam.FY]) / 4.0
+
+
+def estimate_essential(uv1: torch.Tensor, uv2: torch.Tensor, intr1: torch.Tensor,
+                       intr2: torch.Tensor, mask: torch.Tensor, thresh_px: float = 1.0,
+                       num_hypotheses: int = 2048,
+                       generator: Optional[torch.Generator] = None,
+                       pos: Optional[torch.Tensor] = None):
+    """RANSAC essential matrix in normalized camera coordinates
+    (GeometricFilter.cpp:10-37 equivalent). The pixel threshold goes to
+    the normalized plane by the mean focal length, as OpenCV does.
+    ``pos``: optional (H, 8) raw draws. Returns (E, inlier_mask,
+    num_inliers)."""
+    x1 = cam.unproject(intr1, uv1)[:, :2]
+    x2 = cam.unproject(intr2, uv2)[:, :2]
+    thresh = (thresh_px / _mean_focal(intr1, intr2)) ** 2
+    solver = lambda p1, p2: _eight_point(p1, p2, rank2_project=True, essential=True)  # noqa: E731
+    E, inl, cnt = ransac.ransac(
+        (x1, x2), mask, solver, sampson_distance, sample_size=8,
+        num_hypotheses=num_hypotheses, inlier_thresh=thresh, generator=generator, pos=pos)
+    return _refit_if_better(E, inl, cnt, x1, x2, mask, thresh, essential=True)
 
 
 def _cross(a, b):

@@ -164,6 +164,11 @@ def invert_pose(T: torch.Tensor) -> torch.Tensor:
     return make_pose(Rt, -torch.einsum("...ij,...j->...i", Rt, t))
 
 
+def compose(T1: torch.Tensor, T2: torch.Tensor) -> torch.Tensor:
+    """T1 @ T2 (apply T2 first)."""
+    return T1 @ T2
+
+
 def project_to_so3(M: torch.Tensor) -> torch.Tensor:
     """Nearest rotation matrix to M via SVD (det-corrected)."""
     U, _, Vt = torch.linalg.svd(M)

@@ -63,6 +63,13 @@ def triangulate_batch(poses: torch.Tensor, intrs: torch.Tensor, uvs: torch.Tenso
     return torch.where(bad[:, None], float("nan"), pts)
 
 
+def triangulate(poses: torch.Tensor, intrs: torch.Tensor, uvs: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """DLT-triangulate one point from up to V observations: poses (V, 4,
+    4), intrs (V, 6), uvs (V, 2), mask (V,) bool -> world point (3,)."""
+    return triangulate_batch(poses[None], intrs[None], uvs[None], mask[None])[0]
+
+
 def triangulation_angles_deg(points: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """Pairwise ray angles (degrees) between observing cameras.
 

@@ -19,9 +19,12 @@ the parameters. Module names follow the magicleap checkpoint
 (``kenc.encoder.*``, ``gnn.layers.i.attn.proj.*``, ``final_proj``,
 ``bin_score``), so its state dict converts by squeezing the Conv1d kernels.
 
-Sinkhorn runs through ``matching.cuda_sinkhorn.log_sinkhorn_fused``: the
-hand-written kernel for tensors on the card, the plain loop for tensors
-on the CPU.
+Matching runs its Sinkhorn through ``matching.cuda_sinkhorn.log_sinkhorn_fused``:
+the hand-written kernel for tensors on the card, the plain loop for
+tensors on the CPU. ``log_sinkhorn`` is the plain, differentiable loop on
+any device, which training differentiates (the kernel has no backward,
+as the Pallas one has no VJP). ``to_jax_params`` and ``params_to_npz`` write
+the JAX package's pytree and its flat ``kenc.0.dense.w``-style npz.
 """
 
 from __future__ import annotations
@@ -170,7 +173,8 @@ def init_params(generator: Optional[torch.Generator] = None,
 
 
 def structured_identity_params(gamma: float = 24.0, bin_score: float = 5.0,
-                               generator: Optional[torch.Generator] = None) -> SuperGlue:
+                               generator: Optional[torch.Generator] = None,
+                               n_layers: int = N_LAYERS) -> SuperGlue:
     """Structured weights that make SuperGlue a pure Sinkhorn matcher.
 
     The GNN layers are residual, so zeroing every MLP's last dense (and
@@ -180,9 +184,11 @@ def structured_identity_params(gamma: float = 24.0, bin_score: float = 5.0,
     sqrt(D)``, and the full dust-bin Sinkhorn + mutual-argmax + score > 0.5
     decode runs unchanged. The other weights are drawn from ``generator``
     (the JAX package draws them from its own key; the output does not
-    depend on them). The config value ``superglue_weights="structured"``.
+    depend on them). The config value ``superglue_weights="structured"``;
+    with fewer ``n_layers``, the trainer's starting point
+    (``scripts/train_superglue.small_identity_params``).
     """
-    net = init_params(generator)
+    net = init_params(generator, n_layers)
     with torch.no_grad():
         last = [net.kenc.encoder[-1]] + [layer.mlp[-1] for layer in net.gnn.layers]
         for dense in last:
@@ -230,6 +236,60 @@ def from_jax_params(params: Mapping[str, Any]) -> SuperGlue:
     dense("final_proj", params["final_proj"])
     sd["bin_score"] = np.asarray(params["bin_score"], np.float32)
     return _load(len(params["layers"]), sd)
+
+
+def to_jax_params(net: SuperGlue) -> Dict[str, Any]:
+    """The module -> the JAX package's pytree of numpy arrays in the
+    module's dtype (the inverse of ``from_jax_params``): dense ``w`` as
+    (in, out), BN ``scale/bias/mean/var``, a scalar ``bin_score``."""
+    sd = {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()}
+
+    def dense(prefix):
+        return {"w": np.ascontiguousarray(sd[f"{prefix}.weight"].T), "b": sd[f"{prefix}.bias"]}
+
+    def mlp(prefix, channels):
+        layers = []
+        for i in range(len(channels) - 1):
+            layer = {"dense": dense(f"{prefix}.{3 * i}")}
+            if i < len(channels) - 2:
+                layer["bn"] = {theirs: sd[f"{prefix}.{3 * i + 1}.{ours}"]
+                               for ours, theirs in (("weight", "scale"), ("bias", "bias"),
+                                                    ("running_mean", "mean"),
+                                                    ("running_var", "var"))}
+            layers.append(layer)
+        return layers
+
+    params: Dict[str, Any] = {"kenc": mlp("kenc.encoder", KENC_CHANNELS),
+                              "final_proj": dense("final_proj"),
+                              "bin_score": sd["bin_score"].reshape(()), "layers": []}
+    for i in range(len(net.gnn.layers)):
+        p = f"gnn.layers.{i}"
+        params["layers"].append({
+            "q": dense(f"{p}.attn.proj.0"), "k": dense(f"{p}.attn.proj.1"),
+            "v": dense(f"{p}.attn.proj.2"), "merge": dense(f"{p}.attn.merge"),
+            "mlp": mlp(f"{p}.mlp", MLP_CHANNELS)})
+    return params
+
+
+def params_to_npz(net: SuperGlue, path: str) -> None:
+    """Write the weights as the JAX package's ``params_to_npz`` does: the
+    pytree flattened to ``kenc.0.dense.w``-style keys (dict keys, then
+    list indices), float32, compressed; both packages' ``params_from_npz``
+    load it."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(obj, prefix):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                walk(v, f"{prefix}{k}.")
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                walk(v, f"{prefix}{i}.")
+        else:
+            flat[prefix[:-1]] = np.asarray(obj)
+
+    walk(to_jax_params(net), "")
+    np.savez_compressed(path, **flat)
 
 
 def params_from_npz(path: str) -> SuperGlue:
@@ -287,6 +347,33 @@ def pair_scores(net: SuperGlue, desc, xy, score, kmask, shapes, pair_idx):
     xy1n = normalize_keypoints(xy[j], shapes[j, 0], shapes[j, 1])
     f0, f1 = net(desc[i], desc[j], xy0n, xy1n, score[i], score[j], kmask[i], kmask[j])
     return torch.einsum("bmd,bnd->bmn", f0, f1) / (D_MODEL ** 0.5), kmask[i], kmask[j]
+
+
+def gnn_forward(net: SuperGlue, desc0, desc1, xy0n, xy1n, score0, score1, mask0, mask1):
+    """The attentional GNN on one pair, unbatched as in the JAX package:
+    desc (M, D), xyn (M, 2), score/mask (M,); or on a batch of pairs, each
+    with a leading (B,). Returns the matching descriptors (M, D), (N, D)
+    (or (B, M, D), (B, N, D)) after the final projection; differentiable."""
+    if desc0.dim() == 3:
+        return net(desc0, desc1, xy0n, xy1n, score0, score1, mask0, mask1)
+    f0, f1 = net(desc0[None], desc1[None], xy0n[None], xy1n[None], score0[None], score1[None],
+                 mask0[None], mask1[None])
+    return f0[0], f1[0]
+
+
+def log_sinkhorn(scores: torch.Tensor, alpha: torch.Tensor, mask0: torch.Tensor,
+                 mask1: torch.Tensor, num_iters: int) -> torch.Tensor:
+    """Differentiable optimal transport with dust bins (SuperGlue §3.2),
+    the plain loop on any device: scores (M, N) or (B, M, N) -> the
+    (M+1, N+1) (or (B, M+1, N+1)) log-coupling. Masked slots are driven to
+    -1e9 so they couple only with the bins. This is the function training
+    differentiates; matching takes the kernel (``log_sinkhorn_fused``)."""
+    single = scores.dim() == 2
+    if single:
+        scores, mask0, mask1 = scores[None], mask0[None], mask1[None]
+    couplings, log_mu, log_nu, norm = cuda_sinkhorn.augment(scores, alpha, mask0, mask1)
+    Z = cuda_sinkhorn.sinkhorn_plain(couplings, log_mu, log_nu, num_iters) - norm[:, None, None]
+    return Z[0] if single else Z
 
 
 def decode(Z: torch.Tensor, mask0: torch.Tensor, score_thresh: float):

@@ -160,6 +160,8 @@ def test_port_runs_without_jax_pil_or_the_jax_package():
             "reconstructor_tpu_torch.scripts.profile_pcg_path"} <= set(res["module_names"])
     # the training, BA-variant and rank-scaling scripts, with optax blocked too
     assert {"reconstructor_tpu_torch.scripts.train_frontend",
+            "reconstructor_tpu_torch.scripts.distill_fountain",
+            "reconstructor_tpu_torch.scripts.train_superglue",
             "reconstructor_tpu_torch.scripts.check_ba_variants",
             "reconstructor_tpu_torch.scripts.bench_scaling",
             "reconstructor_tpu_torch.scripts.diag_scaling"} <= set(res["module_names"])

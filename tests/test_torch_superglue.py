@@ -101,9 +101,13 @@ def gnn_both(jparams, net, seed=0):
     with torch.no_grad():
         txyn = tsg.normalize_keypoints(t(xy), t([160, 160]), t([160, 160]))
         np.testing.assert_array_equal(txyn.numpy(), xyn)
-        got = net(*(t(a)[None] for a in (desc[0], desc[1], xyn[0], xyn[1], score[0], score[1],
-                                          mask[0], mask[1])))
-    return [np.asarray(w) for w in want], [g[0].numpy() for g in got]
+        args = [t(a) for a in (desc[0], desc[1], xyn[0], xyn[1], score[0], score[1],
+                               mask[0], mask[1])]
+        got = tsg.gnn_forward(net, *args)
+        batched = tsg.gnn_forward(net, *(a[None] for a in args))
+    for g, b in zip(got, batched):
+        assert torch.equal(g, b[0])
+    return [np.asarray(w) for w in want], [g.numpy() for g in got]
 
 
 def assert_close_to_scale(got, want, rel=1e-4):

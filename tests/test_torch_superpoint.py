@@ -65,7 +65,7 @@ def test_forward_equals_jax(which):
     gray = rng.uniform(size=(2, 64, 96)).astype(np.float32)
     jl, jd = jsp.forward(jp, jnp.asarray(gray))
     with torch.no_grad():
-        tl, td = net(t(gray))
+        tl, td = tsp.forward(net, t(gray))
     assert tuple(tl.shape) == (2, 8, 12, 65) and tuple(td.shape) == (2, 8, 12, 256)
     assert_close_to_scale(tl.numpy(), np.asarray(jl))
     assert_close_to_scale(td.numpy(), np.asarray(jd))
