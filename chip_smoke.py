@@ -198,14 +198,34 @@ Phases, each printing one or more lines with its elapsed seconds:
               the port; ``ate_vs_golden`` on the e2e phase's centres within
               a factor of 2 of its pose ATE, and ``ate_floor_vs_golden``
               under 1%.
-18. distill — the port's ``scripts/distill_fountain.py`` on the rendered
+18. measure — the port's six photograph-measuring scripts on the rendered
+              scene, which stands in for the photographs: (a)
+              ``measure_match100`` on the 25 views tiled 4x (100 images,
+              4,950 pairs): 10 kNN launches a pass (counters set to 0 just
+              before), every tiled copy's ungated table equal to its
+              pair's, each valid row of the 150 self-pairs its own best
+              column on >= 99.9% of rows, the kernel on one 512-pair chunk
+              against its plain version (final matches equal in float32,
+              >= 99.9% in bf16, bf16 against float32 >= 97%) and timed
+              beside its bound; (b) ``bench_knn_dtype``: finite pairs/s in
+              both dtypes, inlier agreement >= 0.95; (c)
+              ``profile_match100_decomp`` cases A-G: finite medians, case
+              C's chunks (B = 256) equal to (a)'s ungated tables (B = 512);
+              (d) ``exp_match_regression``: packed and float argmins agree
+              on >= 99.9% of valid rows at each width (the packed launches
+              counted), then the packed kernel on (a)'s chunk against its
+              plain version and timed; (e) ``profile_detect`` on the 25
+              views: every stage timed; (f) ``exp_quality``'s 12 variants
+              on every third view against a golden PLY of their true
+              centres: no variant fails, ``default`` 9/9 with ATE < 10%.
+19. distill — the port's ``scripts/distill_fountain.py`` on the rendered
               views at the script's widths and depth (the teacher the
               port's SIFT, the bank from views 0-19): finite losses, the
               last 50 steps' mean loss under 0.8x the first 50's, the
               float16 npz reloading to the weights saved; ms a step, the
               phase's seconds, held-out recall and precision at 2 px
               against the teacher on views 20-24.
-19. train-superglue — the port's ``scripts/train_superglue.py`` on the
+20. train-superglue — the port's ``scripts/train_superglue.py`` on the
               rendered views at the script's widths and pairs (600 of its
               1,500 steps): step 0 decodes every validation pair as the
               structured identity, bit for bit; finite losses that fall;
@@ -216,7 +236,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               call of ``val_f1`` (the kernels line's ``sinkhorn_val_f1``
               row: this path's launches, and the kernel timed at its
               B = 1, K = 512); every validation's F1, ms a step.
-20. stress  — the port's ``scripts/stress_synth.py`` path at full width
+21. stress  — the port's ``scripts/stress_synth.py`` path at full width
               (``eval/synth``'s circular rig, 2,000 points + 128 clutter
               slots a view, 128-D descriptors, K = 2,176) at the script's
               100 views (4,950 pairs), autosaving every 50 views (users'
@@ -234,11 +254,11 @@ Phases, each printing one or more lines with its elapsed seconds:
               views ends in the uninterrupted run's state bit for bit; then
               ``scripts/stress_report.py`` on the final autosave gives the
               run's counts and ATE.
-21. ba-profile — the port's ``scripts/profile_ba.py`` on the saved
+22. ba-profile — the port's ``scripts/profile_ba.py`` on the saved
               fountain BA problem (``out/ba_problem_final.npz``): every piece
               of the dense and PCG solvers per call, the segment-sum kernel
               beside ``index_add_``, each full solve's device-busy share.
-22. train   — SuperPoint trained on the card by the port's
+23. train   — SuperPoint trained on the card by the port's
               ``scripts/train_frontend.py`` at the JAX script's defaults
               (1,500 steps of 2 scenes, 24 scenes x 6 views at 160 px;
               autograd, cuDNN, Adam): ms a step, the wall, a finite loss
@@ -253,7 +273,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               ``tests/data/superpoint_synth.npz`` runs the same scenes and
               seeds and is printed beside them, not gated. The weights'
               sha256 says whether training repeated.
-23. ba-variants — the dense LM's Schur products at the three precisions
+24. ba-variants — the dense LM's Schur products at the three precisions
               against float64 ('highest' and 'high' within 1e-6 of the
               operands' scale, 'default''s one bf16 pass coarser); then
               the port's ``scripts/check_ba_variants.py``
@@ -262,7 +282,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               three Schur precisions, w16, hcc16; 3 warm solves a row):
               'high' must end within 1e-3 relative of 'highest''s final
               cost on both; the bf16-storage rows are recorded.
-24. scaling — the port's ``scripts/bench_scaling.py`` (raw and gated kNN
+25. scaling — the port's ``scripts/bench_scaling.py`` (raw and gated kNN
               pairs/s, distributed BA seconds at 32 images x 512 keypoints
               and 25 cameras x 5,000 points) and ``diag_scaling.py`` with
               worlds of 1 and 2 gloo ranks sharing the card: the 2-rank
@@ -2490,6 +2510,246 @@ def phase_ate(tmp: str, scene, state, pose_ate: float):
 
 
 # ----------------------------------------------------------------------
+# the photograph-measuring scripts on the rendered scene
+# ----------------------------------------------------------------------
+
+def copies_repeat(tables: dict, n: int) -> int:
+    """Every tiled copy (i + n a, j + n b) of a pair (i < j) of the first
+    ``n`` images has the pair's ungated table, bit for bit, and a pair
+    without matches has copies without matches. Returns the copies
+    checked."""
+    import numpy as np
+    checked = 0
+    for p in range(4 * n):
+        for q in range(p + 1, 4 * n):
+            i, j = p % n, q % n
+            if i >= j:
+                continue
+            a, b = tables.get((p, q)), tables.get((i, j))
+            check((a is None) == (b is None) and (a is None or np.array_equal(a, b)),
+                  f"measure: the ungated table of copy ({p}, {q}) differs from ({i}, {j})")
+            checked += 1
+    # a pair's copies with p < q are those with a <= b: 10 of the 16
+    check(checked == 10 * n * (n - 1) // 2, f"measure: {checked} copies checked")
+    return checked
+
+
+def self_pairs_find_themselves(desc16, mask, n: int, dev) -> float:
+    """Kernel 1 (bf16) on the 6 n self-pairs (i + n a, i + n b), a < b, of
+    the tiled images in one launch: the share of valid rows whose best
+    column is the row itself."""
+    import torch
+    from reconstructor_tpu_torch.matching import cuda_knn
+    pairs = [(i + n * a, i + n * b) for i in range(n) for a in range(4) for b in range(a + 1, 4)]
+    chunk = torch.tensor(pairs, dtype=torch.int32, device=dev)
+    bias = torch.where(mask, 0.0, 1e30).to(torch.float32).contiguous()
+    _, _, arg, _ = cuda_knn.knn_topk2(desc16, bias, chunk)
+    rows = torch.arange(arg.shape[1], device=dev, dtype=torch.int32)
+    valid = mask[chunk[:, 0].long()]
+    return (arg == rows)[valid].double().mean().item()
+
+
+def chunk_outputs_equal(outputs, pair_np, tables: dict, K: int, label: str) -> int:
+    """The decomposition's kept kNN-only chunks (match_idx, match_mask),
+    pair for pair, equal to the driver's ungated tables. Returns the pairs
+    compared."""
+    import numpy as np
+    s0 = 0
+    for mi, mm in outputs:
+        m = np.where(mm.cpu().numpy(), mi.cpu().numpy(), -1)
+        kt = m.shape[1]
+        for q in range(mi.shape[0]):
+            if s0 + q >= len(pair_np):
+                break
+            i, j = (int(v) for v in pair_np[s0 + q])
+            ref = tables.get((i, j), np.full(K, -1, np.int32))
+            check(np.array_equal(m[q], ref[:kt]) and not (ref[kt:] >= 0).any(),
+                  f"{label}: pair ({i}, {j}) differs from the driver's ungated table")
+        s0 += mi.shape[0]
+    check(s0 >= len(pair_np), f"{label}: chunks hold {s0} of {len(pair_np)} pairs")
+    return len(pair_np)
+
+
+def packed_agrees(runs, mask_np, pair_np) -> dict:
+    """Per width, the share of valid rows of the real pairs on which the
+    packed and the float kernel's argmins agree (``exp_match_regression``'s
+    kept outputs)."""
+    import torch
+    out = {}
+    for kt in sorted({r["kt"] for r in runs}):
+        by = {r["packed"]: r["outputs"] for r in runs if r["kt"] == kt}
+        same = tot = 0
+        s0 = 0
+        for a, b in zip(by[True], by[False]):
+            B = a[2].shape[0]
+            e = min(B, len(pair_np) - s0)
+            rows = torch.from_numpy(mask_np[pair_np[s0:s0 + e, 0], :kt]).to(a[2].device)
+            same += int(((a[2][:e] == b[2][:e]) & rows).sum())
+            tot += int(rows.sum())
+            s0 += B
+        out[kt] = same / max(tot, 1)
+    return out
+
+
+def phase_measure(dev, tmp: str, scene, imgs) -> list:
+    """The port's six photograph-measuring scripts on the rendered scene,
+    which stands in for the fountain photographs (their ``main()`` reads
+    ``reference/data``, not in the repository): (a) ``measure_match100``
+    on the 25 views tiled 4x, (b) ``bench_knn_dtype``, (c)
+    ``profile_match100_decomp`` cases A-G, (d) ``exp_match_regression``,
+    (e) ``profile_detect`` on the 25 views, (f) ``exp_quality``'s 12
+    variants on every third view. Returns the kernels line's two rows:
+    kernel 1 and kernel 2 at the headline's shape (N = 100, the run's Kt,
+    a 512-pair chunk, bf16)."""
+    import numpy as np
+    import torch
+    from reconstructor_tpu_torch.config import ReconstructorConfig
+    from reconstructor_tpu_torch.io import images as io_images, ply
+    from reconstructor_tpu_torch.matching import cuda_knn
+    from reconstructor_tpu_torch.matching import pairs as pairing
+    from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
+    from reconstructor_tpu_torch.scripts import (bench_knn_dtype, exp_match_regression,
+                                                 exp_quality, measure_match100,
+                                                 profile_detect, profile_match100_decomp)
+    t_phase = time.perf_counter()
+    cfg = ReconstructorConfig()
+    n = len(imgs)
+    state = IncrementalReconstructor(cfg, verbose=False, device=dev).detect_features_from_images(
+        imgs)
+
+    # (a) the headline: the main path of this phase, counted
+    t = time.perf_counter()
+    cuda_knn.reset_launches()
+    head = measure_match100.measure(state, cfg, dev)
+    launches = cuda_knn.LAUNCHES
+    state100 = head.pop("state")
+    B = cfg.match_chunk_pairs_fused
+    chunks = -(-head["n_pairs"] // B)
+    log("measure", f"(a) measure_match100 in {time.perf_counter() - t:.1f}s: " + json.dumps(head)
+                   + f", kernel 1 launches {launches}")
+    check(head["n_pairs"] == 2 * n * (4 * n - 1) and np.isfinite(head["match100_pairs_per_s"]),
+          f"measure (a): {head}")
+    check(launches == 4 * chunks, f"measure (a): {launches} kernel 1 launches for 4 passes of "
+                                  f"{chunks} chunks")
+    rec = IncrementalReconstructor(cfg, verbose=False, device=dev)
+    state100.matches = {}
+    rec.match_features(state100, filter=False)
+    ungated = dict(state100.matches)
+    copies = copies_repeat(ungated, n)
+    desc_d, mask_d, _ = rec._device_frontend(state100)
+    desc16 = desc_d.to(torch.bfloat16).contiguous()
+    selfs = self_pairs_find_themselves(desc16, mask_d, n, dev)
+    log("measure", f"(a) ungated: {len(ungated)} pairs with matches; {copies} tiled copies equal "
+                   f"to their pair's table; self-pairs: best column the row itself on {selfs:.6f} "
+                   f"of valid rows")
+    check(selfs >= 0.999, f"measure (a): self-pairs find themselves on {selfs}")
+    pair_np = pairing.exhaustive_pairs(state100.num_images)
+    chunk = torch.from_numpy(np.ascontiguousarray(pair_np[:B], dtype=np.int32)).to(dev)
+    label = (f"headline chunk (N={state100.num_images}, Kt={desc_d.shape[1]}, "
+             f"D={desc_d.shape[2]}, B={B} of {len(pair_np)} pairs)")
+    _, m32 = compare_knn(desc_d, mask_d, chunk, exact=False, tol=1e-5, min_match_agree=1.0,
+                         label=label + " f32")
+    knn16, m16 = compare_knn(desc16, mask_d, chunk, exact=False, tol=1e-5,
+                             min_match_agree=0.999, label=label + " bf16")
+    rows_valid = mask_d[chunk[:, 0].long()]
+    agree = (m16 == m32)[rows_valid].float().mean().item()
+    log("measure", f"(a) bf16 vs f32 final matches on the chunk: {agree:.5f} of valid rows")
+    check(agree >= 0.97, f"measure (a): bf16 and f32 matches agree on only {agree:.4f}")
+    t1 = time_knn(desc16, mask_d, chunk, label + " bf16")
+    rows = [{"name": "knn_top2_match100", "route": "cuda",
+             "source": "reconstructor_tpu_torch/" + cuda_knn.SOURCE,
+             "replaces": cuda_knn.REPLACES, "launches": launches,
+             "max_abs_err": knn16["max_abs_err"], "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+             "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
+             "library_ms": t1["library_ms"]}]
+
+    # (b) float32 against bfloat16
+    t = time.perf_counter()
+    dt = bench_knn_dtype.bench(state, cfg, dev)
+    dt.pop("matches")
+    log("measure", f"(b) bench_knn_dtype in {time.perf_counter() - t:.1f}s: " + json.dumps(dt))
+    for d in bench_knn_dtype.DTYPES:
+        check(np.isfinite(dt[f"pairs_per_s_{d}"]) and dt[f"pairs_per_s_{d}"] > 0,
+              f"measure (b): {d} pairs/s {dt}")
+    check(dt["agreement_bf16_vs_f32"] >= 0.95, f"measure (b): agreement {dt}")
+
+    # (c) the decomposition, every case
+    t = time.perf_counter()
+    dec = profile_match100_decomp.decompose(state, cfg, dev, cases="ABCDEGF", keep="C",
+                                            log=lambda m: log("measure", "(c) " + m))
+    for letter, c in dec["cases"].items():
+        check(np.isfinite(c["med_s"]) and c["med_s"] > 0, f"measure (c): case {letter} {c}")
+    check(len(dec["cases"]) == 7, f"measure (c): cases {list(dec['cases'])}")
+    compared = chunk_outputs_equal(dec["outputs"].pop("C"), pair_np, ungated,
+                                   state.max_keypoints, "measure (c) case C")
+    log("measure", f"(c) decomposition in {time.perf_counter() - t:.1f}s; case C (B=256) == "
+                   f"(a)'s ungated tables (B={B}) on all {compared} pairs; "
+                   + json.dumps(dec["cases"]))
+    del dec
+
+    # (d) packed against unpacked at both widths
+    t = time.perf_counter()
+    cuda_knn.reset_launches()
+    reg = exp_match_regression.regress(state, cfg, dev, keep=True,
+                                       log=lambda m: log("measure", "(d) " + m))
+    packed_launches = cuda_knn.LAUNCHES_PACKED
+    agree = packed_agrees(reg["runs"], np.tile(state.kp_mask, (4, 1)), pair_np)
+    for r in reg["runs"]:
+        r.pop("outputs")
+    log("measure", f"(d) exp_match_regression in {time.perf_counter() - t:.1f}s: "
+                   + json.dumps(reg) + f"; packed vs float argmins agree {json.dumps(agree)}; "
+                   f"packed launches {packed_launches}")
+    for kt, a in agree.items():
+        check(a >= 0.999, f"measure (d): at Kt={kt} packed and float argmins agree on {a}")
+    check(packed_launches > 0, "measure (d): the packed kernel never launched")
+    del reg
+    torch.cuda.empty_cache()
+    bias16 = torch.where(mask_d, 0, cuda_knn._DMAX).to(torch.int32).contiguous()
+    pres = compare_packed(desc16, mask_d, chunk, exact=False, label=label + " packed bf16")
+    t2 = time_knn(desc16, mask_d, chunk, label + " packed bf16",
+                  kernel=lambda: cuda_knn.knn_topk2(desc16, bias16, chunk, packed=True),
+                  plain=lambda: cuda_knn.knn_topk2_packed_plain(desc16, bias16, chunk))
+    rows.append({"name": "knn_packed_match100", "route": "cuda",
+                 "source": "reconstructor_tpu_torch/" + cuda_knn.PACKED_SOURCE,
+                 "replaces": cuda_knn.PACKED_REPLACES, "launches": packed_launches,
+                 "max_abs_err": pres["max_abs_err"], "ms": t2["ms"], "plain_ms": t2["plain_ms"],
+                 "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
+                 "library_ms": t2["library_ms"]})
+    del desc16, bias16, desc_d, mask_d, state100, ungated
+    torch.cuda.empty_cache()
+
+    # (e) the SIFT stages on the 25 views
+    t = time.perf_counter()
+    gray, shapes, _ = io_images.pad_batch(imgs)
+    prof = profile_detect.profile(gray, shapes, cfg, dev,
+                                  log=lambda m: log("measure", "(e) " + m))
+    stage_keys = ("scale_space_ms", "dog_gates_ms", "nms_topk_ms", "detect_ms",
+                  "descriptors_ms", "resample_ms", "full_ms")
+    log("measure", f"(e) profile_detect in {time.perf_counter() - t:.1f}s: " + json.dumps(prof))
+    for k in stage_keys:
+        check(np.isfinite(prof[k]) and prof[k] > 0, f"measure (e): stage {k} {prof}")
+
+    # (f) the quality sweep on every third view, against their true centres
+    t = time.perf_counter()
+    sub, sub_imgs = every_third_view(scene, imgs)
+    golden = os.path.join(tmp, "golden_every_third.ply")
+    ply.save_cloud(golden, scene["points"],
+                   np.full((len(scene["points"]), 3), 128, np.uint8), sub["poses"])
+    state0 = exp_quality.matched_state(sub_imgs, cfg, dev)
+    qual = exp_quality.sweep(state0, cfg, golden, dev,
+                             log=lambda m: log("measure", "(f) " + m))
+    log("measure", f"(f) exp_quality, {len(qual)} variants on {len(sub_imgs)} views in "
+                   f"{time.perf_counter() - t:.1f}s")
+    check(len(qual) == len(exp_quality.VARIANTS), f"measure (f): variants {list(qual)}")
+    d = qual["default"]
+    check(d["registered"] == len(sub_imgs) and d["ate_norm"] < 0.10,
+          f"measure (f): default registered {d['registered']}/{len(sub_imgs)}, "
+          f"ATE {d['ate_norm']}")
+    log("measure", f"phase {time.perf_counter() - t_phase:.1f}s")
+    return rows
+
+
+# ----------------------------------------------------------------------
 # the 100-view stress run and the BA profile
 # ----------------------------------------------------------------------
 
@@ -3121,6 +3381,8 @@ def main(argv=None) -> int:
         phase_mesh(dev, tmp, here, scene, imgs, pcg_cfg, (pcg_summary, pcg_state), learned_run)
         phase_resume(dev, tmp, scene, imgs, orb_cfg.with_(checkpoint_every_views=3))
         phase_ate(tmp, scene, e2e_state, e2e_ate)
+        kernels += phase_measure(dev, tmp, scene, imgs)
+        torch.cuda.empty_cache()
         phase_distill(dev, tmp, imgs)
         sg_train = phase_train_superglue(dev, tmp, here, imgs)
         kernels.append({"name": "sinkhorn_val_f1", "route": "cuda",

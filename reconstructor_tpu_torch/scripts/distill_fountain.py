@@ -167,9 +167,9 @@ def require(*paths: str) -> None:
     """Stop with a message when an input of ``main()`` is missing."""
     for path in paths:
         if not os.path.exists(path):
-            raise SystemExit(f"{path} is missing: main() trains on the fountain photographs, "
+            raise SystemExit(f"{path} is missing: main() reads the fountain photographs, "
                              "which the repository does not hold yet; the functions of this "
-                             "script take images as arrays")
+                             "script take images or feature states as arrays")
 
 
 def gray_crops(imgs):

@@ -165,6 +165,10 @@ def test_port_runs_without_jax_pil_or_the_jax_package():
             "reconstructor_tpu_torch.scripts.check_ba_variants",
             "reconstructor_tpu_torch.scripts.bench_scaling",
             "reconstructor_tpu_torch.scripts.diag_scaling"} <= set(res["module_names"])
+    # the six photograph-measuring scripts
+    assert {f"reconstructor_tpu_torch.scripts.{m}" for m in (
+        "measure_match100", "bench_knn_dtype", "profile_match100_decomp",
+        "exp_match_regression", "profile_detect", "exp_quality")} <= set(res["module_names"])
     assert res["group_at_import"] is False
     # 5 rendered views, 256 keypoints: every view registers (measured
     # 5/5, 125 landmarks, 5.8% normalised ATE); bound the ATE at 15%

@@ -75,3 +75,26 @@ def smoke_views(views):
     poses = render.corner_rig(25, rng=rng)[list(views)]
     imgs, _ = render.render_views(poses, tex_a, tex_b, 384, 512, 614.4)
     return np.stack(imgs), poses
+
+
+def rendered_folder(d, seed: int = 11):
+    """``test_integration.render_synthetic_views`` (4 views of 256x320) as
+    PNGs in the folder ``d`` (a ``pathlib.Path``), with a golden PLY of the
+    true camera centres beside them (gray points, green camera rows, as
+    the port writes one): (folder, golden PLY path, world-to-camera poses)."""
+    from PIL import Image
+    from reconstructor_tpu_torch.io import ply
+    from test_integration import render_synthetic_views
+    imgs, poses, _, pts = render_synthetic_views(np.random.default_rng(seed))
+    for i, im in enumerate(imgs):
+        Image.fromarray((im * 255).astype(np.uint8)).convert("RGB").save(str(d / f"{i:02d}.png"))
+    golden = str(d / "golden.ply")
+    ply.save_cloud(golden, pts, np.full((len(pts), 3), 128, np.uint8), poses)
+    return str(d), golden, poses
+
+
+# the configuration of the measuring scripts' tests on those views
+# (``test_torch_pipeline``'s, with 128 F-gate hypotheses)
+MEASURE_KW = dict(max_keypoints=256, ransac_num_hypotheses=256, pnp_num_hypotheses=256,
+                  fundamental_num_hypotheses=128, focal_px=300.0, pnp_min_inliers=8,
+                  min_2d3d_match_num=5)
