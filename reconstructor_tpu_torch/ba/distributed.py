@@ -50,6 +50,7 @@ import torch
 
 from reconstructor_tpu_torch.ba import cuda_schur, cuda_segsum, lm as ba_lm
 from reconstructor_tpu_torch.parallel.mesh import Mesh, all_sum, replicate, shard_rows
+from reconstructor_tpu_torch.utils import profiling
 
 # CG iterations between host reads of the converged flag (the flag, not
 # this period, decides x)
@@ -62,9 +63,11 @@ def _local(*sums):
 
 
 def _layouts(prob: ba_lm.BAProblem) -> cuda_schur.SchurLayout:
-    """The segment layouts of one solve: observations by camera, by point."""
-    return cuda_schur.schur_layout(prob.obs_cam, prob.obs_pt, prob.cam_params.shape[0],
-                                   prob.points.shape[0], prob.obs_mask)
+    """The segment layouts of one solve: observations by camera, by point
+    (the ``ba.layout`` span)."""
+    with profiling.annotate("ba.layout"):
+        return cuda_schur.schur_layout(prob.obs_cam, prob.obs_pt, prob.cam_params.shape[0],
+                                       prob.points.shape[0], prob.obs_mask)
 
 
 def _inv3x3(m: torch.Tensor) -> torch.Tensor:
@@ -104,21 +107,22 @@ def _pcg(matvec, rhs: torch.Tensor, precond, num_iters: int, tol: float) -> torc
     limit = tol * torch.linalg.norm(rhs)
     active = torch.linalg.norm(r) > limit
     for it in range(num_iters):
-        Ap = matvec(p)
-        alpha = rz / torch.clamp(torch.dot(p, Ap), min=1e-20)
-        x_new = x + alpha * p
-        r_new = r - alpha * Ap
-        z = precond(r_new)
-        rz_new = torch.dot(r_new, z)
-        beta = rz_new / torch.clamp(rz, min=1e-20)
-        p_new = z + beta * p
-        x = torch.where(active, x_new, x)
-        r = torch.where(active, r_new, r)
-        p = torch.where(active, p_new, p)
-        rz = torch.where(active, rz_new, rz)
-        active = active & (torch.linalg.norm(r) > limit)
-        if (it + 1) % _CG_CHECK == 0 and it + 1 < num_iters and not bool(active):
-            break
+        with profiling.annotate("ba.pcg.cg_iteration"):
+            Ap = matvec(p)
+            alpha = rz / torch.clamp(torch.dot(p, Ap), min=1e-20)
+            x_new = x + alpha * p
+            r_new = r - alpha * Ap
+            z = precond(r_new)
+            rz_new = torch.dot(r_new, z)
+            beta = rz_new / torch.clamp(rz, min=1e-20)
+            p_new = z + beta * p
+            x = torch.where(active, x_new, x)
+            r = torch.where(active, r_new, r)
+            p = torch.where(active, p_new, p)
+            rz = torch.where(active, rz_new, rz)
+            active = active & (torch.linalg.norm(r) > limit)
+            if (it + 1) % _CG_CHECK == 0 and it + 1 < num_iters and not bool(active):
+                break
     return x
 
 
@@ -127,15 +131,16 @@ def _build_pcg_blocks(prob: ba_lm.BAProblem, lay: cuda_schur.SchurLayout, cam, p
     """Damping-independent blocks for the implicit-Schur path (built once
     per outer LM iteration; lambda retries reuse them). ``reduce`` sums
     the four over the ranks; Y stays local."""
-    seg_sum = cuda_segsum.seg_sum
-    res, Jc, Jp = _build_blocks(prob, cam, pts, huber_delta)
-    g_c = seg_sum(torch.einsum("ori,or->oi", Jc, res), lay.cam)
-    g_p = seg_sum(torch.einsum("ori,or->oi", Jp, res), lay.pt)
-    H_cc = seg_sum(torch.einsum("ori,orj->oij", Jc, Jc), lay.cam)
-    H_pp = seg_sum(torch.einsum("ori,orj->oij", Jp, Jp), lay.pt)
-    g_c, g_p, H_cc, H_pp = reduce(g_c, g_p, H_cc, H_pp)
-    Y = torch.einsum("ori,orj->oij", Jc, Jp).contiguous()               # (O, 12, 3)
-    return g_c, g_p, H_cc, H_pp, Y
+    with profiling.annotate("ba.blocks"):
+        seg_sum = cuda_segsum.seg_sum
+        res, Jc, Jp = _build_blocks(prob, cam, pts, huber_delta)
+        g_c = seg_sum(torch.einsum("ori,or->oi", Jc, res), lay.cam)
+        g_p = seg_sum(torch.einsum("ori,or->oi", Jp, res), lay.pt)
+        H_cc = seg_sum(torch.einsum("ori,orj->oij", Jc, Jc), lay.cam)
+        H_pp = seg_sum(torch.einsum("ori,orj->oij", Jp, Jp), lay.pt)
+        g_c, g_p, H_cc, H_pp = reduce(g_c, g_p, H_cc, H_pp)
+        Y = torch.einsum("ori,orj->oij", Jc, Jp).contiguous()               # (O, 12, 3)
+        return g_c, g_p, H_cc, H_pp, Y
 
 
 def _schur_matvec(lay: cuda_schur.SchurLayout, Y, H_cc, H_pp_inv, u_flat: torch.Tensor,
@@ -210,55 +215,58 @@ def solve_pcg(prob: ba_lm.BAProblem, max_iters: int = 50,
     per-observation partial sums over the ranks (``solve_distributed``
     passes it); ``None`` on one device.
     """
-    reduce = reduce or _local
-    prob = prob._replace(obs_cam=prob.obs_cam.long(), obs_pt=prob.obs_pt.long())
-    lay = _layouts(prob)
-    maskO = prob.obs_mask.to(prob.cam_params.dtype)
+    with profiling.annotate("ba.solve"):
+        reduce = reduce or _local
+        prob = prob._replace(obs_cam=prob.obs_cam.long(), obs_pt=prob.obs_pt.long())
+        lay = _layouts(prob)
+        maskO = prob.obs_mask.to(prob.cam_params.dtype)
 
-    def cost_of(cam, pts):
-        return reduce(ba_lm._cost(prob, cam, pts, maskO, huber_delta))[0]
+        def cost_of(cam, pts):
+            return reduce(ba_lm._cost(prob, cam, pts, maskO, huber_delta))[0]
 
-    f32 = np.float32
-    cam, pts = prob.cam_params, prob.points
-    cost0 = cost_of(cam, pts)
-    cost = cost0
-    cost_h = f32(cost0.item())
-    lam = f32(init_lambda)
-    trace = []
-    it = 0
-    while it < max_iters:
-        blocks = _build_pcg_blocks(prob, lay, cam, pts, huber_delta, reduce)
-        lam_i = lam
-        accepted = False
-        for _ in range(max_retries):
-            d_cam, d_pt = _lm_step_pcg(prob, lay, blocks, lam_i, cg_iters, cg_tol, damping,
-                                       reduce)
-            cam_new = cam + d_cam
-            cam_new[:, 6:8] = torch.clamp(cam_new[:, 6:8], max=focal_upper_bound)
-            pts_new = pts + d_pt
-            new_cost = cost_of(cam_new, pts_new)
-            new_h = f32(new_cost.item())
-            if np.isfinite(new_h) and new_h < cost_h:
-                accepted = True
-                break
-            lam_i = f32(lam_i * f32(lambda_up))
-        it += 1
-        if accepted:
-            cam, pts, cost = cam_new, pts_new, new_cost
-            lam = f32(lam_i / f32(lambda_down))
-            rel_drop = f32((cost_h - new_h) / max(cost_h, f32(1e-12)))
-            cost_h = new_h
-            if rel_drop < f32(ftol) and rel_drop >= 0:
-                break
-        else:
-            lam = lam_i
-        trace.append(cost_h)
-        if lam > 1e10:
-            break
-    trace += [cost_h] * (max_iters - len(trace))
-    return ba_lm.BAResult(cam_params=cam, points=pts, cost_initial=cost0,
-                          cost_final=cost, iterations=it,
-                          cost_trace=torch.tensor(np.asarray(trace, np.float32)))
+        f32 = np.float32
+        cam, pts = prob.cam_params, prob.points
+        cost0 = cost_of(cam, pts)
+        cost = cost0
+        cost_h = f32(cost0.item())
+        lam = f32(init_lambda)
+        trace = []
+        it = 0
+        while it < max_iters:
+            with profiling.annotate("ba.lm_iteration"):
+                blocks = _build_pcg_blocks(prob, lay, cam, pts, huber_delta, reduce)
+                lam_i = lam
+                accepted = False
+                for _ in range(max_retries):
+                    with profiling.annotate("ba.trial"):
+                        d_cam, d_pt = _lm_step_pcg(prob, lay, blocks, lam_i, cg_iters, cg_tol,
+                                                   damping, reduce)
+                        cam_new = cam + d_cam
+                        cam_new[:, 6:8] = torch.clamp(cam_new[:, 6:8], max=focal_upper_bound)
+                        pts_new = pts + d_pt
+                        new_cost = cost_of(cam_new, pts_new)
+                        new_h = f32(new_cost.item())
+                        if np.isfinite(new_h) and new_h < cost_h:
+                            accepted = True
+                            break
+                        lam_i = f32(lam_i * f32(lambda_up))
+                it += 1
+                if accepted:
+                    cam, pts, cost = cam_new, pts_new, new_cost
+                    lam = f32(lam_i / f32(lambda_down))
+                    rel_drop = f32((cost_h - new_h) / max(cost_h, f32(1e-12)))
+                    cost_h = new_h
+                    if rel_drop < f32(ftol) and rel_drop >= 0:
+                        break
+                else:
+                    lam = lam_i
+                trace.append(cost_h)
+                if lam > 1e10:
+                    break
+        trace += [cost_h] * (max_iters - len(trace))
+        return ba_lm.BAResult(cam_params=cam, points=pts, cost_initial=cost0,
+                              cost_final=cost, iterations=it,
+                              cost_trace=torch.tensor(np.asarray(trace, np.float32)))
 
 
 def shard_problem(mesh: Mesh, prob: ba_lm.BAProblem) -> ba_lm.BAProblem:

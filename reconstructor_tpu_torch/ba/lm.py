@@ -43,6 +43,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from reconstructor_tpu_torch.utils import profiling
+
 SCHUR_PRECISIONS = ("highest", "high", "default")
 
 
@@ -271,48 +273,49 @@ def _normal_blocks(prob: BAProblem, lay: _Layout, cam, pts, huber_delta: float,
     Hessian blocks before the camera sum, which accumulates in float32;
     any other value is float32, as in the JAX package. H_pp and g_p stay
     float32."""
-    camO = cam[prob.obs_cam]
-    ptO = pts[prob.obs_pt]
-    res = _resid(camO, ptO, prob.obs_uv) * lay.maskO[:, None]       # (O, 2)
-    Jc, Jp = _jac(camO, ptO, prob.obs_uv)                           # (O,2,12), (O,2,3)
-    m = lay.maskO[:, None, None]
-    Jc = Jc * m * prob.cam_free[prob.obs_cam][:, None, :]
-    Jp = Jp * m
-    if huber_delta > 0.0:
-        e = torch.sqrt(torch.sum(res * res, dim=-1) + 1e-20)
-        w = torch.sqrt(torch.clamp(huber_delta / e, max=1.0))       # (O,)
-        res = res * w[:, None]
-        Jc = Jc * w[:, None, None]
-        Jp = Jp * w[:, None, None]
-    O = res.shape[0]
-    C = cam.shape[0]
-    L = pts.shape[0]
-    jtr_c = torch.einsum("ori,or->oi", Jc, res)                     # (O, 12)
-    hcc_o = torch.einsum("ori,orj->oij", Jc, Jc).reshape(O, 144)
-    if block_dtype in ("bfloat16", "hcc16"):
-        hcc_o = _round_bf16(hcc_o)
-    g_c = lay.onehot.T @ jtr_c                                      # (C, 12)
-    H_cc = (lay.onehot.T @ hcc_o).reshape(C, 12, 12)
-    Y = torch.einsum("ori,orj->oij", Jc, Jp).reshape(O, 36)         # (O, 36)
-    w16 = block_dtype in ("bfloat16", "w16")
-    if w16:
-        Y = _round_bf16(Y)
-    hpp_o = torch.einsum("ori,orj->oij", Jp, Jp).reshape(O, 9)
-    gp_o = torch.einsum("ori,or->oi", Jp, res)                      # (O, 3)
-    src = torch.cat([Y, hpp_o, gp_o], dim=1)                        # (O, 48)
-    src = torch.cat([src, torch.zeros_like(src[:1])], dim=0)        # sentinel row O
-    if lay.p_idx is None:
-        # one (C, L) gather carries the coupling AND the point-side rows;
-        # the camera-sum of the latter is the per-landmark sum
-        G = src[lay.w_idx]                                          # (C, L, 48)
-        W = G[..., :36].reshape(C, L, 12, 3).permute(0, 2, 3, 1)
-        pt_sum = torch.sum(G[..., 36:], dim=0)                      # (L, 12)
-    else:
-        W = src[lay.w_idx, :36].reshape(C, L, 12, 3).permute(0, 2, 3, 1)
-        pt_sum = torch.sum(src[lay.p_idx, 36:] * lay.p_mask[..., None], dim=1)
-    if w16:
-        W = W.to(torch.bfloat16)        # exact: the values are bf16 already
-    return g_c, pt_sum[:, 9:].T.contiguous(), H_cc, pt_sum[:, :9].T.contiguous(), W
+    with profiling.annotate("ba.blocks"):
+        camO = cam[prob.obs_cam]
+        ptO = pts[prob.obs_pt]
+        res = _resid(camO, ptO, prob.obs_uv) * lay.maskO[:, None]       # (O, 2)
+        Jc, Jp = _jac(camO, ptO, prob.obs_uv)                           # (O,2,12), (O,2,3)
+        m = lay.maskO[:, None, None]
+        Jc = Jc * m * prob.cam_free[prob.obs_cam][:, None, :]
+        Jp = Jp * m
+        if huber_delta > 0.0:
+            e = torch.sqrt(torch.sum(res * res, dim=-1) + 1e-20)
+            w = torch.sqrt(torch.clamp(huber_delta / e, max=1.0))       # (O,)
+            res = res * w[:, None]
+            Jc = Jc * w[:, None, None]
+            Jp = Jp * w[:, None, None]
+        O = res.shape[0]
+        C = cam.shape[0]
+        L = pts.shape[0]
+        jtr_c = torch.einsum("ori,or->oi", Jc, res)                     # (O, 12)
+        hcc_o = torch.einsum("ori,orj->oij", Jc, Jc).reshape(O, 144)
+        if block_dtype in ("bfloat16", "hcc16"):
+            hcc_o = _round_bf16(hcc_o)
+        g_c = lay.onehot.T @ jtr_c                                      # (C, 12)
+        H_cc = (lay.onehot.T @ hcc_o).reshape(C, 12, 12)
+        Y = torch.einsum("ori,orj->oij", Jc, Jp).reshape(O, 36)         # (O, 36)
+        w16 = block_dtype in ("bfloat16", "w16")
+        if w16:
+            Y = _round_bf16(Y)
+        hpp_o = torch.einsum("ori,orj->oij", Jp, Jp).reshape(O, 9)
+        gp_o = torch.einsum("ori,or->oi", Jp, res)                      # (O, 3)
+        src = torch.cat([Y, hpp_o, gp_o], dim=1)                        # (O, 48)
+        src = torch.cat([src, torch.zeros_like(src[:1])], dim=0)        # sentinel row O
+        if lay.p_idx is None:
+            # one (C, L) gather carries the coupling AND the point-side rows;
+            # the camera-sum of the latter is the per-landmark sum
+            G = src[lay.w_idx]                                          # (C, L, 48)
+            W = G[..., :36].reshape(C, L, 12, 3).permute(0, 2, 3, 1)
+            pt_sum = torch.sum(G[..., 36:], dim=0)                      # (L, 12)
+        else:
+            W = src[lay.w_idx, :36].reshape(C, L, 12, 3).permute(0, 2, 3, 1)
+            pt_sum = torch.sum(src[lay.p_idx, 36:] * lay.p_mask[..., None], dim=1)
+        if w16:
+            W = W.to(torch.bfloat16)        # exact: the values are bf16 already
+        return g_c, pt_sum[:, 9:].T.contiguous(), H_cc, pt_sum[:, :9].T.contiguous(), W
 
 
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -414,6 +417,13 @@ def _damped_schur_step(cam_free, blocks, lam, damping: str, precision: str = "hi
 
 
 def _layout(prob: BAProblem, host_obs=None) -> _Layout:
+    """The solve's gather tables in the ``ba.layout`` span (``solve`` with
+    ``compact`` opens that span over the compaction and the tables)."""
+    with profiling.annotate("ba.layout"):
+        return _gather_tables(prob, host_obs)
+
+
+def _gather_tables(prob: BAProblem, host_obs=None) -> _Layout:
     dev = prob.cam_params.device
     C = prob.cam_params.shape[0]
     L = prob.points.shape[0]
@@ -457,49 +467,51 @@ def _solve_core(prob: BAProblem, lay: _Layout, max_iters: int, init_lambda: floa
     two = torch.tensor(2.0, dtype=dtype, device=dev)
     it = 0
     while it < max_iters:
-        blocks = _normal_blocks(prob, lay, cam, pts, huber_delta, block_dtype)
-        lam_i, nu = lam, two
-        accepted = torch.tensor(False, device=dev)
-        best_cam, best_pts, best_cost, lam_next = cam, pts, cost, lam
-        # fixed-budget damped trials; once one is accepted, later trials
-        # leave the state as it is (the TPU package's retry while_loop)
-        for _ in range(max_retries):
-            d_cam, d_pt, pred = _damped_schur_step(prob.cam_free, blocks, lam_i, damping,
-                                                   schur_precision)
-            cam_new = cam + d_cam
-            cam_new = torch.cat([cam_new[:, :6],
-                                 torch.clamp(cam_new[:, 6:8], max=focal_upper_bound),
-                                 cam_new[:, 8:]], dim=1)
-            pts_new = pts + d_pt
-            new_cost = cost_of(cam_new, pts_new)
-            good = (new_cost < cost) & torch.isfinite(new_cost) & ~accepted
-            if schedule == "nielsen":
-                rho = (cost - new_cost) / torch.clamp(pred, min=1e-20)
-                shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-                lam_acc = torch.clamp(lam_i * shrink, min=1e-12)
-                lam_rej = lam_i * nu
-                nu_new = torch.where(good, two, nu * 2.0)
-            else:
-                lam_acc = torch.clamp(lam_i / lambda_down, min=1e-12)
-                lam_rej = lam_i * lambda_up
-                nu_new = nu
-            best_cam = torch.where(good, cam_new, best_cam)
-            best_pts = torch.where(good, pts_new, best_pts)
-            best_cost = torch.where(good, new_cost, best_cost)
-            lam_next = torch.where(accepted, lam_next, torch.where(good, lam_acc, lam_rej))
-            nu = torch.where(accepted, nu, nu_new)
-            lam_i = torch.where(accepted | good, lam_i, lam_rej)
-            accepted = accepted | good
-        cam = torch.where(accepted, best_cam, cam)
-        pts = torch.where(accepted, best_pts, pts)
-        lam = lam_next
-        rel_drop = (cost - best_cost) / torch.clamp(cost, min=1e-12)
-        done = (accepted & (rel_drop < ftol) & (rel_drop >= 0)) | (lam > 1e10)
-        cost = torch.where(accepted, best_cost, cost)
-        trace[it] = cost
-        it += 1
-        if bool(done):
-            break
+        with profiling.annotate("ba.lm_iteration"):
+            blocks = _normal_blocks(prob, lay, cam, pts, huber_delta, block_dtype)
+            lam_i, nu = lam, two
+            accepted = torch.tensor(False, device=dev)
+            best_cam, best_pts, best_cost, lam_next = cam, pts, cost, lam
+            # fixed-budget damped trials; once one is accepted, later trials
+            # leave the state as it is (the TPU package's retry while_loop)
+            for _ in range(max_retries):
+                with profiling.annotate("ba.trial"):
+                    d_cam, d_pt, pred = _damped_schur_step(prob.cam_free, blocks, lam_i, damping,
+                                                           schur_precision)
+                    cam_new = cam + d_cam
+                    cam_new = torch.cat([cam_new[:, :6],
+                                         torch.clamp(cam_new[:, 6:8], max=focal_upper_bound),
+                                         cam_new[:, 8:]], dim=1)
+                    pts_new = pts + d_pt
+                    new_cost = cost_of(cam_new, pts_new)
+                    good = (new_cost < cost) & torch.isfinite(new_cost) & ~accepted
+                    if schedule == "nielsen":
+                        rho = (cost - new_cost) / torch.clamp(pred, min=1e-20)
+                        shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+                        lam_acc = torch.clamp(lam_i * shrink, min=1e-12)
+                        lam_rej = lam_i * nu
+                        nu_new = torch.where(good, two, nu * 2.0)
+                    else:
+                        lam_acc = torch.clamp(lam_i / lambda_down, min=1e-12)
+                        lam_rej = lam_i * lambda_up
+                        nu_new = nu
+                    best_cam = torch.where(good, cam_new, best_cam)
+                    best_pts = torch.where(good, pts_new, best_pts)
+                    best_cost = torch.where(good, new_cost, best_cost)
+                    lam_next = torch.where(accepted, lam_next, torch.where(good, lam_acc, lam_rej))
+                    nu = torch.where(accepted, nu, nu_new)
+                    lam_i = torch.where(accepted | good, lam_i, lam_rej)
+                    accepted = accepted | good
+            cam = torch.where(accepted, best_cam, cam)
+            pts = torch.where(accepted, best_pts, pts)
+            lam = lam_next
+            rel_drop = (cost - best_cost) / torch.clamp(cost, min=1e-12)
+            done = (accepted & (rel_drop < ftol) & (rel_drop >= 0)) | (lam > 1e10)
+            cost = torch.where(accepted, best_cost, cost)
+            trace[it] = cost
+            it += 1
+            if bool(done):
+                break
     trace = torch.cummin(torch.where(torch.isfinite(trace), trace, cost), dim=0).values
     return BAResult(cam_params=cam, points=pts, cost_initial=cost0,
                     cost_final=cost, iterations=it, cost_trace=trace)
@@ -542,15 +554,18 @@ def solve(prob: BAProblem, max_iters: int = 50, init_lambda: float = 1e-3,
               huber_delta=huber_delta, damping=damping, schedule=schedule,
               lambda_up=lambda_up, lambda_down=lambda_down, block_dtype=block_dtype,
               schur_precision=schur_precision)
-    if not compact:
-        return _solve_core(prob, _layout(prob, host_obs), **kw)
-    cprob, used, used_cams, _ = compact_problem(prob, bucket_steps)
-    res = _solve_core(cprob, _layout(cprob), **kw)
-    dev = prob.points.device
-    u = torch.as_tensor(used, device=dev).long()
-    uc = torch.as_tensor(used_cams, device=dev).long()
-    pts = prob.points.clone()
-    pts[u] = res.points[:u.numel()]
-    cams = prob.cam_params.clone()
-    cams[uc] = res.cam_params[:uc.numel()]
-    return res._replace(points=pts, cam_params=cams)
+    with profiling.annotate("ba.solve"):
+        if not compact:
+            return _solve_core(prob, _layout(prob, host_obs), **kw)
+        with profiling.annotate("ba.layout"):
+            cprob, used, used_cams, _ = compact_problem(prob, bucket_steps)
+            lay = _gather_tables(cprob)
+        res = _solve_core(cprob, lay, **kw)
+        dev = prob.points.device
+        u = torch.as_tensor(used, device=dev).long()
+        uc = torch.as_tensor(used_cams, device=dev).long()
+        pts = prob.points.clone()
+        pts[u] = res.points[:u.numel()]
+        cams = prob.cam_params.clone()
+        cams[uc] = res.cam_params[:uc.numel()]
+        return res._replace(points=pts, cam_params=cams)

@@ -17,6 +17,8 @@ and ``report.json``:
 ``--resume`` continues from it, ``--eval-ate GOLDEN_PLY`` prints the ATE
 against a golden cloud, and ``--save-matches`` / ``--render`` draw the
 matches and the final cloud (these two need PIL / matplotlib).
+``--trace DIR`` records the run with ``torch.profiler`` into
+``DIR/trace.json`` (stages and the ``match.*`` / ``ba.*`` spans).
 """
 
 from __future__ import annotations
@@ -65,6 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="full global BA every N registrations (with local BA)")
     p.add_argument("--final-refinement", type=int, default=None,
                    help="extra global BA rounds after the last view")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="record a torch.profiler trace of the run into DIR/trace.json")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -74,6 +78,7 @@ def main(argv=None) -> int:
 
     from reconstructor_tpu_torch.config import ReconstructorConfig
     from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
+    from reconstructor_tpu_torch.utils import profiling
 
     cfg = ReconstructorConfig(
         detector=args.detector, matcher=args.matcher,
@@ -90,9 +95,10 @@ def main(argv=None) -> int:
     if overrides:
         cfg = cfg.with_(**overrides)
     rec = IncrementalReconstructor(cfg, verbose=not args.quiet, device=args.device)
-    state = rec.reconstruct(args.img_folder, args.out_folder,
-                            save_intermediate=args.save_intermediate,
-                            checkpoint_path=args.checkpoint, resume=args.resume)
+    with profiling.trace(args.trace, enabled=args.trace is not None, device=args.device):
+        state = rec.reconstruct(args.img_folder, args.out_folder,
+                                save_intermediate=args.save_intermediate,
+                                checkpoint_path=args.checkpoint, resume=args.resume)
 
     if args.save_matches:
         from reconstructor_tpu_torch.utils import viz

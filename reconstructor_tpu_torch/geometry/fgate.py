@@ -17,6 +17,7 @@ import torch
 
 from reconstructor_tpu_torch.geometry.linalg import cholesky_unrolled, cho_solve_unrolled
 from reconstructor_tpu_torch.geometry.ransac import raw_draws
+from reconstructor_tpu_torch.utils import profiling
 
 
 def _normalize(x, y, w, wsum):
@@ -163,36 +164,39 @@ def filter_pairs_scalarized(pts1: torch.Tensor, pts2: torch.Tensor,
     thr = thresh_px * thresh_px
 
     # ---- sampling: compacted valid indices, uniform draws --------------
-    order = torch.argsort((~ms).to(torch.int8), dim=1, stable=True)
-    n_valid = torch.clamp(ms.sum(dim=1), min=1).to(torch.int64)
-    if pos is None:
-        pos = raw_draws((B, H, 8), mask.device, generator)
-    pos = pos.to(torch.int64) % n_valid[:, None, None]
-    idx = torch.gather(order, 1, pos.reshape(B, -1))             # (B, H*8)
+    with profiling.annotate("match.fgate.sample"):
+        order = torch.argsort((~ms).to(torch.int8), dim=1, stable=True)
+        n_valid = torch.clamp(ms.sum(dim=1), min=1).to(torch.int64)
+        if pos is None:
+            pos = raw_draws((B, H, 8), mask.device, generator)
+        pos = pos.to(torch.int64) % n_valid[:, None, None]
+        idx = torch.gather(order, 1, pos.reshape(B, -1))         # (B, H*8)
 
-    def g(a):
-        return torch.gather(a, 1, idx).reshape(B, H, 8)
-    hx1, hy1, hx2, hy2 = g(xs1), g(ys1), g(xs2), g(ys2)
+        def g(a):
+            return torch.gather(a, 1, idx).reshape(B, H, 8)
+        hx1, hy1, hx2, hy2 = g(xs1), g(ys1), g(xs2), g(ys2)
 
     # ---- hypothesis solve + scoring ------------------------------------
-    w8 = torch.ones_like(hx1)
-    f = _solve_f9(hx1, hy1, hx2, hy2, w8, 8.0)                    # (B, H, 9)
-    d = _sampson9(f, xs1[:, None], ys1[:, None], xs2[:, None], ys2[:, None])
-    counts = torch.sum((d < thr) & ms[:, None, :], dim=-1)       # (B, H)
-    best = torch.argmax(counts, dim=1)
-    fb = torch.gather(f, 1, best[:, None, None].expand(B, 1, 9))[:, 0]
+    with profiling.annotate("match.fgate.hypotheses"):
+        w8 = torch.ones_like(hx1)
+        f = _solve_f9(hx1, hy1, hx2, hy2, w8, 8.0)                # (B, H, 9)
+        d = _sampson9(f, xs1[:, None], ys1[:, None], xs2[:, None], ys2[:, None])
+        counts = torch.sum((d < thr) & ms[:, None, :], dim=-1)   # (B, H)
+        best = torch.argmax(counts, dim=1)
+        fb = torch.gather(f, 1, best[:, None, None].expand(B, 1, 9))[:, 0]
 
     # ---- classify every slot with the winner ---------------------------
-    d_best = _sampson9(fb[:, None, :], x1f[:, None], y1f[:, None],
-                       x2f[:, None], y2f[:, None])[:, 0]
-    inl_best = (d_best < thr) & mask
-    cnt_best = torch.sum(inl_best, dim=1)
+    with profiling.annotate("match.fgate.refit"):
+        d_best = _sampson9(fb[:, None, :], x1f[:, None], y1f[:, None],
+                           x2f[:, None], y2f[:, None])[:, 0]
+        inl_best = (d_best < thr) & mask
+        cnt_best = torch.sum(inl_best, dim=1)
 
-    # ---- guarded all-inlier refit --------------------------------------
-    w = inl_best.to(pts1.dtype)
-    fr = _solve_f9(x1f, y1f, x2f, y2f, w, torch.clamp(torch.sum(w, -1), min=1.0))
-    d_refit = _sampson9(fr[:, None, :], x1f[:, None], y1f[:, None],
-                        x2f[:, None], y2f[:, None])[:, 0]
-    inl_refit = (d_refit < thr) & mask
-    better = (torch.sum(inl_refit, dim=1) >= cnt_best)[:, None]
-    return torch.where(better, inl_refit, inl_best)
+        # ---- guarded all-inlier refit ----------------------------------
+        w = inl_best.to(pts1.dtype)
+        fr = _solve_f9(x1f, y1f, x2f, y2f, w, torch.clamp(torch.sum(w, -1), min=1.0))
+        d_refit = _sampson9(fr[:, None, :], x1f[:, None], y1f[:, None],
+                            x2f[:, None], y2f[:, None])[:, 0]
+        inl_refit = (d_refit < thr) & mask
+        better = (torch.sum(inl_refit, dim=1) >= cnt_best)[:, None]
+        return torch.where(better, inl_refit, inl_best)

@@ -17,6 +17,7 @@ import torch
 
 from reconstructor_tpu_torch.geometry import fgate
 from reconstructor_tpu_torch.matching import cuda_knn, knn
+from reconstructor_tpu_torch.utils import profiling
 
 
 def filter_pairs(pts1, pts2, mask, num_hypotheses: int, thresh_px: float,
@@ -31,9 +32,10 @@ def filter_pairs(pts1, pts2, mask, num_hypotheses: int, thresh_px: float,
     """
     K = pts1.shape[1]
     stride = 4 if K >= 1024 else 1
-    return fgate.filter_pairs_scalarized(
-        pts1, pts2, mask, num_hypotheses=num_hypotheses,
-        thresh_px=thresh_px, stride=stride, generator=generator, pos=pos)
+    with profiling.annotate("match.fgate"):
+        return fgate.filter_pairs_scalarized(
+            pts1, pts2, mask, num_hypotheses=num_hypotheses,
+            thresh_px=thresh_px, stride=stride, generator=generator, pos=pos)
 
 
 def match_and_gate(desc, kmask, xy, pair_chunk,
@@ -50,14 +52,10 @@ def match_and_gate(desc, kmask, xy, pair_chunk,
     Returns (match_idx (B, K) int16 with -1 for gated-out slots,
     inlier counts (B,) int32).
     """
-    if use_fused:
-        midx, mmask = cuda_knn.match_all_pairs_fused(
-            desc, kmask, pair_chunk, ratio_thresh=ratio_thresh,
-            cross_check=cross_check, compute_dtype=compute_dtype)
-    else:
-        midx, mmask = knn.match_all_pairs(
-            desc, kmask, pair_chunk, ratio_thresh=ratio_thresh,
-            cross_check=cross_check, compute_dtype=compute_dtype)
+    fn = cuda_knn.match_all_pairs_fused if use_fused else knn.match_all_pairs
+    with profiling.annotate("match.knn"):
+        midx, mmask = fn(desc, kmask, pair_chunk, ratio_thresh=ratio_thresh,
+                         cross_check=cross_check, compute_dtype=compute_dtype)
     K = desc.shape[1]
     pc = pair_chunk.long()
     p1 = xy[pc[:, 0]]                                             # (B, K, 2)

@@ -23,6 +23,7 @@ from reconstructor_tpu_torch.matching import cuda_knn, gated, knn, superglue
 from reconstructor_tpu_torch.parallel.mesh import (  # noqa: F401  (the JAX module's names)
     AXIS, DEFAULT_TIMEOUT_S, Mesh, all_gather, all_sum, counts, initialize_multihost,
     make_mesh, pad_to_multiple, put_global, replicate, reset_counts, shard_batch, shard_rows)
+from reconstructor_tpu_torch.utils import profiling
 
 
 def _pairs(mesh: Mesh, pair_idx):
@@ -58,8 +59,10 @@ def match_all_pairs_sharded(mesh: Mesh, desc, mask, pair_idx,
     if use_fused is None:
         use_fused = mesh.device.type == "cuda"
     fn = cuda_knn.match_all_pairs_fused if use_fused else knn.match_all_pairs
-    mi, mm = fn(replicate(mesh, desc), replicate(mesh, mask), pairs,
-                ratio_thresh=ratio_thresh, cross_check=cross_check, compute_dtype=compute_dtype)
+    with profiling.annotate("match.knn"):
+        mi, mm = fn(replicate(mesh, desc), replicate(mesh, mask), pairs,
+                    ratio_thresh=ratio_thresh, cross_check=cross_check,
+                    compute_dtype=compute_dtype)
     return all_gather(mesh, mi)[:n], all_gather(mesh, mm)[:n]
 
 

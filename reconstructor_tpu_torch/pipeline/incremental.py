@@ -63,7 +63,7 @@ from reconstructor_tpu_torch.matching import gated, knn, pairs as pairing, super
 from reconstructor_tpu_torch.parallel import mesh as pmesh, sharding
 from reconstructor_tpu_torch.pipeline import checkpoint
 from reconstructor_tpu_torch.pipeline.state import ReconstructionState, MAX_VIEWS_PER_LANDMARK
-from reconstructor_tpu_torch.utils import device as devices
+from reconstructor_tpu_torch.utils import device as devices, profiling
 from reconstructor_tpu_torch.utils.timing import TimeLogger
 
 
@@ -483,54 +483,59 @@ class IncrementalReconstructor:
         draws for real pairs only). With
         ``matcher="superglue"`` the pairs go through ``_match_superglue``
         and then, with filter=True, the gate of ``_filter_matches``."""
-        cfg = self.config
-        pair_idx = self.select_pairs(state)
-        if cfg.matcher == "superglue":
-            midx, mmask = self._match_superglue(state, pair_idx)
-            if filter:
-                mmask = self._filter_matches(state, pair_idx, midx, mmask)
-            for p, (i, j) in enumerate(pair_idx):
-                m = np.where(mmask[p], midx[p], -1).astype(np.int32)
-                if (m >= 0).sum() > 0:
-                    state.matches[(int(i), int(j))] = m
-            return
-        desc_d, mask_d, xy_d = self._device_frontend(state)
-        Kt = int(desc_d.shape[1])
-        on_card = self.device.type == "cuda"
-        compute_dtype = cfg.knn_compute_dtype if on_card else "float32"
-        B = cfg.match_chunk_pairs_fused if on_card else cfg.match_chunk_pairs
-        B = -(-B // self._shards.size) * self._shards.size
-        P = pair_idx.shape[0]
-        K = state.max_keypoints
-        n = min(K, Kt)
-        results = []
-        for s0 in range(0, P, B):
-            e = min(s0 + B, P)
-            chunk = np.ascontiguousarray(pair_idx[s0:e], dtype=np.int32)
-            if filter:
-                out = sharding.match_and_gate_sharded(
-                    self._shards, desc_d, mask_d, xy_d, chunk,
-                    ratio_thresh=cfg.ratio_thresh, cross_check=cfg.cross_check,
-                    use_fused=on_card,
-                    num_hypotheses=cfg.fundamental_num_hypotheses,
-                    thresh_px=cfg.fundamental_thresh_px,
-                    min_matches=cfg.min_matches_for_filter,
-                    compute_dtype=compute_dtype, generator=self._gen)
-            else:
-                mi, mm = sharding.match_all_pairs_sharded(
-                    self._shards, desc_d, mask_d, chunk, ratio_thresh=cfg.ratio_thresh,
-                    cross_check=cfg.cross_check, use_fused=on_card, compute_dtype=compute_dtype)
-                out = (torch.where(mm, mi, -1), mm.sum(1))
-            results.append((s0, e, out))
-        for s0, e, (mi, cnt) in results:
-            mi = mi.cpu().numpy()
-            cnt = cnt.cpu().numpy()
-            for q in range(e - s0):
-                if cnt[q] > 0:
-                    i, j = pair_idx[s0 + q]
-                    full = np.full(K, -1, np.int32)
-                    full[:n] = mi[q, :n]
-                    state.matches[(int(i), int(j))] = full
+        with profiling.annotate("match.pass"):
+            cfg = self.config
+            pair_idx = self.select_pairs(state)
+            if cfg.matcher == "superglue":
+                midx, mmask = self._match_superglue(state, pair_idx)
+                if filter:
+                    mmask = self._filter_matches(state, pair_idx, midx, mmask)
+                with profiling.annotate("match.tables"):
+                    for p, (i, j) in enumerate(pair_idx):
+                        m = np.where(mmask[p], midx[p], -1).astype(np.int32)
+                        if (m >= 0).sum() > 0:
+                            state.matches[(int(i), int(j))] = m
+                return
+            desc_d, mask_d, xy_d = self._device_frontend(state)
+            Kt = int(desc_d.shape[1])
+            on_card = self.device.type == "cuda"
+            compute_dtype = cfg.knn_compute_dtype if on_card else "float32"
+            B = cfg.match_chunk_pairs_fused if on_card else cfg.match_chunk_pairs
+            B = -(-B // self._shards.size) * self._shards.size
+            P = pair_idx.shape[0]
+            K = state.max_keypoints
+            n = min(K, Kt)
+            results = []
+            for s0 in range(0, P, B):
+                with profiling.annotate("match.chunk"):
+                    e = min(s0 + B, P)
+                    chunk = np.ascontiguousarray(pair_idx[s0:e], dtype=np.int32)
+                    if filter:
+                        out = sharding.match_and_gate_sharded(
+                            self._shards, desc_d, mask_d, xy_d, chunk,
+                            ratio_thresh=cfg.ratio_thresh, cross_check=cfg.cross_check,
+                            use_fused=on_card,
+                            num_hypotheses=cfg.fundamental_num_hypotheses,
+                            thresh_px=cfg.fundamental_thresh_px,
+                            min_matches=cfg.min_matches_for_filter,
+                            compute_dtype=compute_dtype, generator=self._gen)
+                    else:
+                        mi, mm = sharding.match_all_pairs_sharded(
+                            self._shards, desc_d, mask_d, chunk, ratio_thresh=cfg.ratio_thresh,
+                            cross_check=cfg.cross_check, use_fused=on_card,
+                            compute_dtype=compute_dtype)
+                        out = (torch.where(mm, mi, -1), mm.sum(1))
+                    results.append((s0, e, out))
+            with profiling.annotate("match.tables"):
+                for s0, e, (mi, cnt) in results:
+                    mi = mi.cpu().numpy()
+                    cnt = cnt.cpu().numpy()
+                    for q in range(e - s0):
+                        if cnt[q] > 0:
+                            i, j = pair_idx[s0 + q]
+                            full = np.full(K, -1, np.int32)
+                            full[:n] = mi[q, :n]
+                            state.matches[(int(i), int(j))] = full
 
     def _match_superglue(self, state: ReconstructionState, pair_idx: np.ndarray):
         """SuperGlue over every pair (FeatureMatcherSuperglue parity:
@@ -552,18 +557,20 @@ class IncrementalReconstructor:
         B = -(-cfg.superglue_chunk_pairs // self._shards.size) * self._shards.size
         results = []
         for s0 in range(0, P, B):
-            e = min(s0 + B, P)
-            chunk = np.ascontiguousarray(pair_idx[s0:e], dtype=np.int32)
-            idx, ok, _ = sharding.match_superglue_sharded(
-                self._shards, net, desc, xy, score, kmask, shapes, chunk,
-                sinkhorn_iters=cfg.superglue_sinkhorn_iters,
-                score_thresh=cfg.superglue_score_thresh)
-            results.append((s0, e, idx, ok))
+            with profiling.annotate("match.chunk"):
+                e = min(s0 + B, P)
+                chunk = np.ascontiguousarray(pair_idx[s0:e], dtype=np.int32)
+                idx, ok, _ = sharding.match_superglue_sharded(
+                    self._shards, net, desc, xy, score, kmask, shapes, chunk,
+                    sinkhorn_iters=cfg.superglue_sinkhorn_iters,
+                    score_thresh=cfg.superglue_score_thresh)
+                results.append((s0, e, idx, ok))
         midx = np.full((P, K), -1, np.int32)
         mmask = np.zeros((P, K), bool)
-        for s0, e, idx, ok in results:
-            midx[s0:e] = idx.cpu().numpy()
-            mmask[s0:e] = ok.cpu().numpy()
+        with profiling.annotate("match.tables"):
+            for s0, e, idx, ok in results:
+                midx[s0:e] = idx.cpu().numpy()
+                mmask[s0:e] = ok.cpu().numpy()
         return midx, mmask
 
     def _filter_matches(self, state: ReconstructionState, pair_idx: np.ndarray,

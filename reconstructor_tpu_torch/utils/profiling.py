@@ -5,7 +5,9 @@ captures a ``torch.profiler`` trace of the enclosed block (host activity,
 plus the card's kernels, copies and fills through CUPTI when the device
 is CUDA) and writes it as a Chrome trace (``trace.json`` in ``logdir``;
 open it in Perfetto or chrome://tracing); ``annotate`` names a region of
-that trace (``record_function``).
+that trace (``record_function``). The port's hot path opens dotted spans
+with it (``match.*`` in matching, ``ba.*`` in the BA solvers); they cost
+one check of the profiler's state each when nothing is recording.
 
 ``stage_summary`` reads such a trace back and, for every annotated name,
 sums the host windows, counts the CUDA launches made inside them, and
@@ -56,11 +58,16 @@ def trace(logdir: str, enabled: bool = True, device: devices.DeviceLike = None):
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named sub-region inside a trace."""
-    with torch.profiler.record_function(name):
-        yield
+    """Named sub-region inside a trace: a ``record_function`` while a
+    profiler records, else one shared no-op context (a ``record_function``
+    costs tens of times the check even when no profiler runs)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def _merge(intervals: Iterable[Tuple[float, float]]) -> List[Tuple[float, float]]:

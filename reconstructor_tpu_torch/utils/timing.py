@@ -2,7 +2,8 @@
 
 Same start/end bracketing and end-of-run millisecond table, with the same
 stage names as the reference's reconstruct() so numbers are directly
-comparable, plus nesting support and a context-manager API.
+comparable, plus nesting support and a context-manager API. ``event``
+also names its block in a ``torch.profiler`` trace (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 import contextlib
 import time
 from typing import Dict, List, Tuple
+
+from reconstructor_tpu_torch.utils import profiling
 
 
 class TimeLogger:
@@ -28,7 +31,8 @@ class TimeLogger:
     def event(self, name: str):
         self.start_event(name)
         try:
-            yield
+            with profiling.annotate(name):
+                yield
         finally:
             self.end_event()
 
