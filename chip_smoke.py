@@ -8,7 +8,7 @@
 Phases, each printing one or more lines with its elapsed seconds:
 
 1. device   — the card's name and power limit (nvidia-smi).
-2. build    — nvcc builds the six CUDA kernel sources in this checkout,
+2. build    — nvcc builds the seven CUDA kernel sources in this checkout,
               side by side (one nvcc process per source), and prints every
               kernel's registers, static shared memory and spills
               (``-Xptxas -v``), the bf16 kNN launch that the kNN, packed
@@ -74,7 +74,21 @@ Phases, each printing one or more lines with its elapsed seconds:
               on the sweep's input and on random unit descriptors, each
               beside its bound and its library chain, and the kNN kernel
               with zero bias on the sweep's input.
-8. segsum   — the fixed-order segment-sum kernel of the PCG solver
+8. fgate    — the F-gate's Sampson-count kernel (kernel 7,
+              ``geometry/cuda_fgate.py``) against its plain version, every
+              count equal bit for bit, at ``FGATE_CASES``' shapes (the
+              benchmark cell's 512-pair chunk and its ragged last chunk of
+              342, stride 1 at K = 256, the learned path's 64 pairs, H =
+              128 and 2,048, K = 8,192), each with an all-masked pair, F = 0
+              and a NaN hypothesis; the wrapper refusing float64 and
+              non-contiguous inputs; then a whole pass of the benchmark's
+              ``match100-k4096`` cell (its configuration and scene
+              generator): one launch a chunk, the first and the last
+              chunks' counts equal to the plain version's, and the tables
+              equal to a pass with the plain chain in the kernel's place;
+              the kernel's ms and traced device time at the first chunk
+              beside its bound, the plain chain's ms, both passes' ms.
+9. segsum   — the fixed-order segment-sum kernel of the PCG solver
               (kernel 5) against its plain version (``index_add_`` over the
               live rows): ragged layouts with integer values (empty
               segments among short and long ones, long ones split over
@@ -101,9 +115,9 @@ Phases, each printing one or more lines with its elapsed seconds:
               call). It runs after the learned phase, beside the packed
               trace: a process's first torch.profiler session leaves a
               one-time cost in the next path's stages.
-9. render   — the 25-view 384x512 scene, rendered once from a seed for
+10. render   — the 25-view 384x512 scene, rendered once from a seed for
               the end-to-end and profile phases.
-10. e2e     — the default path (SIFT, kNN + F-gate, PnP, BA) through
+11. e2e     — the default path (SIFT, kNN + F-gate, PnP, BA) through
               ``detect_features_from_images`` and ``reconstruct_from_state``
               on the card, with every kernel's launch counter set to 0 just
               before and read just after. It must register >= 23 of 25
@@ -116,7 +130,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               F-gate), ``estimate_essential`` + ``recover_pose`` on its
               initial pair, ``solve_pnp_ransac(minimal="dlt6")`` beside
               P3P on 8 registrations (see ``estimators_on_card``).
-11. learned — the learned path (SuperPoint from
+12. learned — the learned path (SuperPoint from
               ``tests/data/superpoint_synth.npz``, the structured 18-layer
               256-wide SuperGlue at 1024 keypoints, 100 Sinkhorn
               iterations, F-gate, PnP, BA) through the same entry points,
@@ -127,7 +141,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               ``tests/data/superglue_fountain.npz`` scores that chunk on
               the card and on the CPU, which must agree (the structured
               GNN's output does not depend on its attention layers).
-12. profile — the port's ``scripts/profile_incremental.py`` on the first
+13. profile — the port's ``scripts/profile_incremental.py`` on the first
               5 views of the rendered scene (the initial pair and three
               views registered after it; one final refinement round instead
               of six): wall seconds, device-busy share, launches and top
@@ -135,7 +149,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               stage that launched CUDA work shows no device time, or if the
               registered count differs from an unprofiled run of the same
               views and seed.
-13. orb     — the ORB path (FAST + rotated BRIEF at D = 256, kNN + F-gate,
+14. orb     — the ORB path (FAST + rotated BRIEF at D = 256, kNN + F-gate,
               PnP, BA) on every third view (9 views at a 5.25 degree step:
               at the scene's 1.75 degree step ORB's initial pair cannot
               triangulate, in the JAX package too), default configuration.
@@ -146,7 +160,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               mostly one wall, so a RANSAC draw can take a wrong motion
               that fits as well and fails to triangulate; the phase prints
               how many of 10 single draws pass on the run's matches.
-14. pcg     — (a) the default path with ``ba_solver="pcg"``: every bundle
+15. pcg     — (a) the default path with ``ba_solver="pcg"``: every bundle
               adjustment through the implicit-Schur PCG solver (counted),
               the segment-sum and fused Schur-sum kernels launched (the
               same counts in both runs), with the e2e phase's limits;
@@ -163,7 +177,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               final RMS within 10% of the 0.5 px noise, PCG finite, the
               gauge camera unmoved; costs, gap, iterations, wall time and
               peak memory printed.
-15. mesh    — the multi-device path (``parallel.mesh``,
+16. mesh    — the multi-device path (``parallel.mesh``,
               ``parallel.sharding``, ``ba.distributed.solve_distributed``).
               In this process, over a world of one under NCCL (a
               ``FileStore`` in the temporary directory): (a) the default
@@ -189,16 +203,16 @@ Phases, each printing one or more lines with its elapsed seconds:
               views) ending in one state on every rank. (e) One NCCL rank
               per card, min(4, count) ranks, the same checks, when there
               are 2 or more cards; otherwise one line says it did not run.
-16. resume  — the ORB phase's run with autosaves every 3 registrations:
+17. resume  — the ORB phase's run with autosaves every 3 registrations:
               the autosave made when the third view registered loads field
               for field equal to the state saved, and a fresh reconstructor
               resumed from it ends in the uninterrupted run's state bit for
               bit.
-17. ate     — a golden PLY of the scene's true camera centres written by
+18. ate     — a golden PLY of the scene's true camera centres written by
               the port; ``ate_vs_golden`` on the e2e phase's centres within
               a factor of 2 of its pose ATE, and ``ate_floor_vs_golden``
               under 1%.
-18. measure — the port's six photograph-measuring scripts on the rendered
+19. measure — the port's six photograph-measuring scripts on the rendered
               scene, which stands in for the photographs: (a)
               ``measure_match100`` on the 25 views tiled 4x (100 images,
               4,950 pairs): 10 kNN launches a pass (counters set to 0 just
@@ -218,14 +232,14 @@ Phases, each printing one or more lines with its elapsed seconds:
               views: every stage timed; (f) ``exp_quality``'s 12 variants
               on every third view against a golden PLY of their true
               centres: no variant fails, ``default`` 9/9 with ATE < 10%.
-19. distill — the port's ``scripts/distill_fountain.py`` on the rendered
+20. distill — the port's ``scripts/distill_fountain.py`` on the rendered
               views at the script's widths and depth (the teacher the
               port's SIFT, the bank from views 0-19): finite losses, the
               last 50 steps' mean loss under 0.8x the first 50's, the
               float16 npz reloading to the weights saved; ms a step, the
               phase's seconds, held-out recall and precision at 2 px
               against the teacher on views 20-24.
-20. train-superglue — the port's ``scripts/train_superglue.py`` on the
+21. train-superglue — the port's ``scripts/train_superglue.py`` on the
               rendered views at the script's widths and pairs (600 of its
               1,500 steps): step 0 decodes every validation pair as the
               structured identity, bit for bit; finite losses that fall;
@@ -236,7 +250,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               call of ``val_f1`` (the kernels line's ``sinkhorn_val_f1``
               row: this path's launches, and the kernel timed at its
               B = 1, K = 512); every validation's F1, ms a step.
-21. stress  — the port's ``scripts/stress_synth.py`` path at full width
+22. stress  — the port's ``scripts/stress_synth.py`` path at full width
               (``eval/synth``'s circular rig, 2,000 points + 128 clutter
               slots a view, 128-D descriptors, K = 2,176) at the script's
               100 views (4,950 pairs), autosaving every 50 views (users'
@@ -254,11 +268,11 @@ Phases, each printing one or more lines with its elapsed seconds:
               views ends in the uninterrupted run's state bit for bit; then
               ``scripts/stress_report.py`` on the final autosave gives the
               run's counts and ATE.
-22. ba-profile — the port's ``scripts/profile_ba.py`` on the saved
+23. ba-profile — the port's ``scripts/profile_ba.py`` on the saved
               fountain BA problem (``out/ba_problem_final.npz``): every piece
               of the dense and PCG solvers per call, the segment-sum kernel
               beside ``index_add_``, each full solve's device-busy share.
-23. train   — SuperPoint trained on the card by the port's
+24. train   — SuperPoint trained on the card by the port's
               ``scripts/train_frontend.py`` at the JAX script's defaults
               (1,500 steps of 2 scenes, 24 scenes x 6 views at 160 px;
               autograd, cuDNN, Adam): ms a step, the wall, a finite loss
@@ -273,7 +287,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               ``tests/data/superpoint_synth.npz`` runs the same scenes and
               seeds and is printed beside them, not gated. The weights'
               sha256 says whether training repeated.
-24. ba-variants — the dense LM's Schur products at the three precisions
+25. ba-variants — the dense LM's Schur products at the three precisions
               against float64 ('highest' and 'high' within 1e-6 of the
               operands' scale, 'default''s one bf16 pass coarser); then
               the port's ``scripts/check_ba_variants.py``
@@ -282,7 +296,7 @@ Phases, each printing one or more lines with its elapsed seconds:
               three Schur precisions, w16, hcc16; 3 warm solves a row):
               'high' must end within 1e-3 relative of 'highest''s final
               cost on both; the bf16-storage rows are recorded.
-25. scaling — the port's ``scripts/bench_scaling.py`` (raw and gated kNN
+26. scaling — the port's ``scripts/bench_scaling.py`` (raw and gated kNN
               pairs/s, distributed BA seconds at 32 images x 512 keypoints
               and 25 cameras x 5,000 points) and ``diag_scaling.py`` with
               worlds of 1 and 2 gloo ranks sharing the card: the 2-rank
@@ -1322,6 +1336,249 @@ def phase_levels(dev, K: int = 4096):
 
 
 # ----------------------------------------------------------------------
+# kernel 7: the F-gate's Sampson counts
+# ----------------------------------------------------------------------
+
+# name: (B pairs, H hypotheses, K slots, stride). Every case has one pair
+# all masked, holes in the other masks that are not a prefix, and F = 0
+# and an F holding a NaN among its hypotheses.
+FGATE_CASES = {
+    "cell_chunk": (512, 512, 3840, 4),       # match100-k4096's chunk
+    "ragged_chunk": (342, 512, 3840, 4),     # the last of its 4,950 pairs
+    "stride1_k256": (64, 512, 256, 1),
+    "learned_b64": (64, 512, 1024, 4),       # the learned path's chunks of 64
+    "h128": (64, 128, 3840, 4),              # H not a multiple of the block
+    "h2048": (64, 2048, 3840, 4),
+    "k8192": (16, 512, 8192, 4),             # max_keypoints 8,192: two tiles of slots
+}
+SAMPSON_FLOPS = 35   # one Sampson distance with its clamp, then the threshold test
+FGATE_CELL = "benchmark/configs/sift-fountain100.json"
+
+
+def fgate_inputs(B: int, H: int, K: int, stride: int, dev, seed: int = 0):
+    """A chunk of the F-gate on the card: each pair's slots hold one scene
+    seen from two 512 x 384 views (focal 614.4, a turn of 3-9 degrees and
+    0.6 of sideways travel), 0.5 px of noise, 30% of the second view's
+    points replaced by clutter; masks set at random on ~75% of slots (pair
+    0 on none). f (B, H, 9): the gate's own 8-point solves on random
+    minimal samples of the pair's slots, with f[:, 0] = 0 and a NaN in
+    f[:, 1]. Returns (f, pts1, pts2, mask)."""
+    import torch
+    from reconstructor_tpu_torch.geometry import fgate
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = dict(device=dev, dtype=torch.float32)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, **f32)
+    X = rand(B, K) * 4.0 - 2.0
+    Y = rand(B, K) * 3.0 - 1.5
+    Z = rand(B, K) * 4.0 + 5.0
+    ang = (0.05 + 0.1 * rand(B))[:, None]
+    X2 = torch.cos(ang) * X + torch.sin(ang) * Z - 0.6
+    Z2 = torch.cos(ang) * Z - torch.sin(ang) * X
+
+    def view(x, y, z):
+        uv = torch.stack([614.4 * x / z + 256.0, 614.4 * y / z + 192.0], -1)
+        return uv + 0.5 * torch.randn(B, K, 2, generator=g, **f32)
+    p1, p2 = view(X, Y, Z), view(X2, Y, Z2)
+    clutter = rand(B, K, 2) * torch.tensor([512.0, 384.0], **f32)
+    p2 = torch.where((rand(B, K) < 0.3)[..., None], clutter, p2).contiguous()
+    mask = rand(B, K) < 0.75
+    mask[0] = False
+    idx = torch.randint(0, K, (B, H * 8), generator=g, device=dev)
+
+    def sample(p, c):
+        return torch.gather(p[..., c], 1, idx).reshape(B, H, 8)
+    hx1, hy1, hx2, hy2 = sample(p1, 0), sample(p1, 1), sample(p2, 0), sample(p2, 1)
+    f = fgate._solve_f9(hx1, hy1, hx2, hy2, torch.ones_like(hx1), 8.0)
+    f[:, 0] = 0.0
+    f[:, 1, 4] = float("nan")
+    return f.contiguous(), p1.contiguous(), p2, mask
+
+
+def fgate_compare(f, p1, p2, mask, stride: int, label: str, thr: float = 9.0):
+    """Kernel 7 against its plain version on one chunk: one launch, the
+    counts equal bit for bit (so the argmax too), a second call equal.
+    Returns (a summary, the counts)."""
+    import torch
+    from reconstructor_tpu_torch.geometry import cuda_fgate
+    before = cuda_fgate.LAUNCHES
+    got = cuda_fgate.sampson_counts(f, p1, p2, mask, stride, thr)
+    torch.cuda.synchronize()
+    check(cuda_fgate.LAUNCHES == before + 1, f"{label}: {cuda_fgate.LAUNCHES - before} launches")
+    want = cuda_fgate.sampson_counts_plain(f, p1, p2, mask, stride, thr)
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{label}: kernel {got.dtype} {tuple(got.shape)}, plain {want.dtype} "
+          f"{tuple(want.shape)}")
+    differ = int((got != want).sum().item())
+    check(differ == 0, f"{label}: {differ} of {got.numel()} counts differ from the plain version")
+    check(torch.equal(torch.argmax(got, 1), torch.argmax(want, 1)), f"{label}: argmax differs")
+    check(torch.equal(cuda_fgate.sampson_counts(f, p1, p2, mask, stride, thr), got),
+          f"{label}: a second call differs")
+    valid = mask[:, ::stride].sum(1)
+    res = {"B": f.shape[0], "H": f.shape[1], "K": mask.shape[1], "stride": stride,
+           "scored_slots": int(valid.sum().item()), "max_count": int(got.max().item()),
+           "winner_mean": float(got.max(1).values.double().mean().item())}
+    log("fgate", f"{label}: kernel == plain, " + json.dumps(res))
+    return res, got
+
+
+def fgate_case(dev, name: str) -> dict:
+    """One of ``FGATE_CASES``: kernel == plain, and the degenerate rows
+    read what they must (the all-masked pair 0, F = 0 counting every
+    scored slot, the NaN hypothesis none)."""
+    B, H, K, stride = FGATE_CASES[name]
+    f, p1, p2, mask = fgate_inputs(B, H, K, stride, dev, seed=sorted(FGATE_CASES).index(name))
+    res, counts = fgate_compare(f, p1, p2, mask, stride, name)
+    valid = mask[:, ::stride].sum(1)
+    check(int(counts[0].abs().sum().item()) == 0, f"{name}: the all-masked pair counts inliers")
+    check(bool((counts[:, 0] == valid).all().item()), f"{name}: F = 0 must count every slot")
+    check(int(counts[:, 1].abs().sum().item()) == 0, f"{name}: the NaN hypothesis counts inliers")
+    check(res["winner_mean"] > 0.3 * float(valid[1:].double().mean().item()),
+          f"{name}: the winners hold few inliers ({res['winner_mean']})")
+    return res
+
+
+def fgate_wrapper_checks(dev) -> None:
+    """The wrapper raises on a float64 or non-contiguous CUDA input without
+    launching, and ``LAUNCHES`` rises by one for each gated chunk."""
+    import torch
+    from reconstructor_tpu_torch.geometry import cuda_fgate
+    from reconstructor_tpu_torch.matching import gated
+    f, p1, p2, mask = fgate_inputs(4, 256, 512, 4, dev)
+    bad = {"float64 f": ((f.double(), p1, p2, mask), TypeError),
+           "float64 pts1": ((f, p1.double(), p2, mask), TypeError),
+           "non-contiguous f": ((torch.cat([f, f], -1)[..., :9], p1, p2, mask), ValueError),
+           "non-contiguous pts2": ((f, p1, torch.cat([p2, p2], -1)[..., :2], mask), ValueError),
+           "non-contiguous mask": ((f, p1, p2, torch.cat([mask, mask], 1)[:, ::2]), ValueError)}
+    before = cuda_fgate.LAUNCHES
+    for what, (args, err) in bad.items():
+        try:
+            cuda_fgate.sampson_counts(*args, 4, 9.0)
+        except err:
+            continue
+        raise AssertionError(f"sampson_counts took a {what}")
+    check(cuda_fgate.LAUNCHES == before, "a refused call launched")
+    g = torch.Generator(device=dev).manual_seed(1)
+    for n in (1, 2):
+        gated.filter_pairs(p1, p2, mask, num_hypotheses=256, thresh_px=3.0, generator=g)
+        check(cuda_fgate.LAUNCHES == before + n,
+              f"{n} gated chunks, {cuda_fgate.LAUNCHES - before} launches")
+    log("fgate", f"wrapper: refused {', '.join(bad)}; one launch a gated chunk")
+
+
+def fgate_cell_pass(dev, here: str, seed: int = 11):
+    """match100-k4096's own pass: the cell's scene and configuration
+    (``FGATE_CELL``, the benchmark's generator) through ``match_features``,
+    recording what the gate hands kernel 7. One launch a chunk (10); the
+    first (512 pairs) and the last (342) chunks' counts equal the plain
+    version's; a second pass with the plain chain in the kernel's place, on
+    the same draws, gives the same tables. Returns (the first chunk's
+    recorded arguments, the pass's launches, the pass's seconds with the
+    kernel and with the plain chain)."""
+    import numpy as np
+    import torch
+    from benchmark.traffic.match_passes import make_scene
+    from reconstructor_tpu_torch.config import ReconstructorConfig
+    from reconstructor_tpu_torch.geometry import cuda_fgate
+    from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
+    from reconstructor_tpu_torch.pipeline.state import ReconstructionState
+    with open(os.path.join(here, FGATE_CELL)) as fh:
+        cell = json.load(fh)
+    cfg = ReconstructorConfig(**cell["reconstructor"]).with_(rng_seed=seed)
+    sc = {k: v.cpu().numpy() for k, v in make_scene(cell["scene"], seed, dev).items()}
+    N, K = sc["mask"].shape
+    state = ReconstructionState(
+        num_images=N, max_keypoints=K, xy=sc["xy"], desc=sc["desc"], kp_mask=sc["mask"],
+        colors=np.zeros((N, K, 3), np.uint8), shapes=sc["shapes"], intrinsics=sc["intrinsics"])
+    kernel = cuda_fgate.sampson_counts
+    seen = []
+
+    def recording(*args):
+        seen.append(args)
+        return kernel(*args)
+
+    def one_pass(counts):
+        rec = IncrementalReconstructor(cfg, verbose=False, device=dev)
+        state.matches = {}
+        cuda_fgate.sampson_counts = counts
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rec.match_features(state, filter=True)
+            torch.cuda.synchronize()
+            return dict(state.matches), time.perf_counter() - t
+        finally:
+            cuda_fgate.sampson_counts = kernel
+    one_pass(kernel)                                          # warm: kernels built, loaded
+    before = cuda_fgate.LAUNCHES
+    tables, pass_s = one_pass(recording)
+    launches = cuda_fgate.LAUNCHES - before
+    chunks = -(-N * (N - 1) // 2 // cfg.match_chunk_pairs_fused)
+    check(launches == chunks == len(seen), f"cell pass: {launches} launches, {chunks} chunks, "
+                                           f"{len(seen)} gate calls")
+    plain_tables, plain_s = one_pass(cuda_fgate.sampson_counts_plain)
+    check(tables.keys() == plain_tables.keys()
+          and all(np.array_equal(tables[p], plain_tables[p]) for p in tables),
+          "cell pass: the kernel's tables differ from the plain chain's")
+    for args, label in ((seen[0], "cell's first chunk"), (seen[-1], "cell's last chunk")):
+        f, p1, p2, mask, stride, thr = args
+        fgate_compare(f, p1, p2, mask, stride, f"{label} (seed {seed})", thr)
+    check(seen[-1][0].shape[0] == N * (N - 1) // 2 - (chunks - 1) * cfg.match_chunk_pairs_fused,
+          "cell pass: the last chunk is not the ragged one")
+    log("fgate", f"cell pass (seed {seed}): {launches} launches, {len(tables)} tables equal to "
+                 f"the plain chain's; pass {pass_s * 1e3:.1f} ms, with the plain chain "
+                 f"{plain_s * 1e3:.1f} ms")
+    return seen[0], launches, pass_s, plain_s
+
+
+def fgate_bound(f, mask, stride: int) -> tuple:
+    """(ms, by): the least time of one call on an H100: the Sampson
+    evaluations the chunk needs (every hypothesis against every valid
+    strided slot) at the float32 peak, or its bytes read once and counts
+    written once at HBM speed, whichever is larger."""
+    B, H = f.shape[:2]
+    evals = H * float(mask[:, ::stride].sum().item())
+    t_ops = evals * SAMPSON_FLOPS / F32_PEAK * 1e3
+    nbytes = f.numel() * 4 + 2 * mask.numel() * 8 + mask.numel() + B * H * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_fgate(dev, here: str) -> dict:
+    """Kernel 7: every ``FGATE_CASES`` case and the wrapper's checks, then
+    the cell's own pass; then at the cell's first chunk the kernel's time
+    (events; traced device time), the plain chain's and the bound. Returns
+    the kernels line's row."""
+    import torch
+    from reconstructor_tpu_torch.geometry import cuda_fgate
+    t0 = time.perf_counter()
+    for name in FGATE_CASES:
+        fgate_case(dev, name)
+        torch.cuda.empty_cache()
+    fgate_wrapper_checks(dev)
+    (f, p1, p2, mask, stride, thr), launches, pass_s, plain_s = fgate_cell_pass(dev, here)
+    ms = cuda_ms(lambda: cuda_fgate.sampson_counts(f, p1, p2, mask, stride, thr), iters=20)
+    plain_ms = cuda_ms(lambda: cuda_fgate.sampson_counts_plain(f, p1, p2, mask, stride, thr),
+                       iters=3, warmup=1)
+    traced = trace_calls(lambda: cuda_fgate.sampson_counts(f, p1, p2, mask, stride, thr))
+    bound_ms, by = fgate_bound(f, mask, stride)
+    res = {"ms": ms, "device_ms": traced["busy_ms"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": by, "launches_a_pass": launches, "pass_ms": pass_s * 1e3,
+           "plain_pass_ms": plain_s * 1e3, "kernels_ms": traced["kernels_ms"]}
+    log("fgate", f"cell's first chunk (B={f.shape[0]} H={f.shape[1]} K={mask.shape[1]} "
+                 f"stride {stride}): " + json.dumps(res))
+    log("fgate", f"phase {time.perf_counter() - t0:.1f}s")
+    del f, p1, p2, mask
+    torch.cuda.empty_cache()
+    return {"name": "sampson_counts", "route": "cuda",
+            "source": "reconstructor_tpu_torch/" + cuda_fgate.SOURCE,
+            "replaces": cuda_fgate.REPLACES, "launches": launches, "max_abs_err": 0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None}
+
+
+# ----------------------------------------------------------------------
 # end to end
 # ----------------------------------------------------------------------
 
@@ -1347,6 +1604,7 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
     import torch
     from reconstructor_tpu_torch.ba import cuda_schur, cuda_segsum
     from reconstructor_tpu_torch.eval import synth
+    from reconstructor_tpu_torch.geometry import cuda_fgate
     from reconstructor_tpu_torch.matching import cuda_knn, cuda_sinkhorn
     from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
 
@@ -1357,6 +1615,7 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
     cuda_sinkhorn.reset_launches()
     cuda_segsum.reset_launches()
     cuda_schur.reset_launches()
+    cuda_fgate.reset_launches()
     t = time.perf_counter()
     state = rec.detect_features_from_images(imgs)
     torch.cuda.synchronize()
@@ -1368,7 +1627,8 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
     torch.cuda.synchronize()
     t_rec = time.perf_counter() - t
     launches = {"knn_top2": cuda_knn.LAUNCHES, "sinkhorn": cuda_sinkhorn.LAUNCHES,
-                "seg_sum": cuda_segsum.LAUNCHES, "schur_sums": cuda_schur.LAUNCHES}
+                "seg_sum": cuda_segsum.LAUNCHES, "schur_sums": cuda_schur.LAUNCHES,
+                "sampson_counts": cuda_fgate.LAUNCHES}
     for name, ms in rec.timer.totals().items():
         log(phase, f"stage '{name}': {ms / 1e3:.2f}s")
     ate = synth.pose_ate(state.poses, scene["poses"])
@@ -1396,6 +1656,7 @@ def phase_e2e(dev, tmp: str, scene, imgs, cfg, pnp_replay: str = None):
     import torch
     rec, state, launches, summary = run_path(dev, tmp, "e2e", scene, imgs, cfg)
     check(launches["knn_top2"] > 0, "the default path never launched the kNN kernel")
+    check(launches["sampson_counts"] > 0, "the default path never launched kernel 7")
     cfg = rec.config
 
     # the kernel on the very inputs the main path gave it
@@ -3277,6 +3538,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, here)
     from reconstructor_tpu_torch.ba import cuda_schur, cuda_segsum
     from reconstructor_tpu_torch.config import ReconstructorConfig
+    from reconstructor_tpu_torch.geometry import cuda_fgate
     from reconstructor_tpu_torch.matching import cuda_knn, cuda_sinkhorn
     from reconstructor_tpu_torch.scripts import profile_knn_kernel
     from reconstructor_tpu_torch.utils import cuda_build
@@ -3293,7 +3555,8 @@ def main(argv=None) -> int:
         cuda_build.load(src)
         return src, time.perf_counter() - t
     sources = [cuda_knn.SOURCE, cuda_sinkhorn.SOURCE, cuda_knn.PACKED_SOURCE,
-               profile_knn_kernel.SOURCE, cuda_segsum.SOURCE, cuda_schur.SOURCE]
+               profile_knn_kernel.SOURCE, cuda_segsum.SOURCE, cuda_schur.SOURCE,
+               cuda_fgate.SOURCE]
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         for src, secs in pool.map(build, sources):
             log("build", f"{src}: {secs:.1f}s")
@@ -3313,10 +3576,11 @@ def main(argv=None) -> int:
     packed = phase_packed(dev)
     levels = phase_levels(dev)
     torch.cuda.empty_cache()
+    fgate = phase_fgate(dev, here)
 
     scene, imgs = render_views()
     sp_weights = os.path.join(here, "tests", "data", "superpoint_synth.npz")
-    kernels = []
+    kernels = [fgate]
     with tempfile.TemporaryDirectory() as tmp:
         launches, res, t, summary, e2e_state = phase_e2e(
             dev, tmp, scene, imgs, ReconstructorConfig(rng_seed=args.rng_seed), args.pnp_replay)

@@ -5,7 +5,9 @@ refit (GeometricFilter.cpp:39-61 equivalent), laid out as elementwise
 arithmetic over the (B, H[, S]) batch with the nine F entries carried as
 separate scalars — no per-hypothesis tiny matmuls. The same arithmetic as
 ``reconstructor_tpu.geometry.fgate`` in the same order, so fed the same
-draws it returns the same inlier masks.
+draws it returns the same inlier masks. The hypotheses' inlier counts
+over the (B, H, S) slots come from ``geometry/cuda_fgate.sampson_counts``:
+kernel 7 on the card, the plain chain on the CPU, with equal counts.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from reconstructor_tpu_torch.geometry import cuda_fgate
 from reconstructor_tpu_torch.geometry.linalg import cholesky_unrolled, cho_solve_unrolled
 from reconstructor_tpu_torch.geometry.ransac import raw_draws
 from reconstructor_tpu_torch.utils import profiling
@@ -114,19 +117,6 @@ def _denormalize9(f, cx1, cy1, s1, cx2, cy2, s2):
     return out / torch.clamp(torch.linalg.norm(out, dim=-1, keepdim=True), min=1e-12)
 
 
-def _sampson9(f, x1, y1, x2, y2):
-    """Sampson distance with F as (..., 9) scalars; points (..., S)."""
-    f00, f01, f02, f10, f11, f12, f20, f21, f22 = (f[..., i, None] for i in range(9))
-    l1 = f00 * x1 + f01 * y1 + f02
-    l2 = f10 * x1 + f11 * y1 + f12
-    l3 = f20 * x1 + f21 * y1 + f22
-    m1 = f00 * x2 + f10 * y2 + f20
-    m2 = f01 * x2 + f11 * y2 + f21
-    e = x2 * l1 + y2 * l2 + l3
-    denom = l1 * l1 + l2 * l2 + m1 * m1 + m2 * m2
-    return (e * e) / torch.clamp(denom, min=1e-12)
-
-
 def _solve_f9(x1, y1, x2, y2, w, wsum):
     """Weighted normalized 8-point solve; returns (..., 9) flat F."""
     cx1, cy1, s1 = _normalize(x1, y1, w, wsum)
@@ -180,23 +170,22 @@ def filter_pairs_scalarized(pts1: torch.Tensor, pts2: torch.Tensor,
     with profiling.annotate("match.fgate.hypotheses"):
         w8 = torch.ones_like(hx1)
         f = _solve_f9(hx1, hy1, hx2, hy2, w8, 8.0)                # (B, H, 9)
-        d = _sampson9(f, xs1[:, None], ys1[:, None], xs2[:, None], ys2[:, None])
-        counts = torch.sum((d < thr) & ms[:, None, :], dim=-1)   # (B, H)
+        counts = cuda_fgate.sampson_counts(f, pts1, pts2, mask, stride, thr)   # (B, H)
         best = torch.argmax(counts, dim=1)
         fb = torch.gather(f, 1, best[:, None, None].expand(B, 1, 9))[:, 0]
 
     # ---- classify every slot with the winner ---------------------------
     with profiling.annotate("match.fgate.refit"):
-        d_best = _sampson9(fb[:, None, :], x1f[:, None], y1f[:, None],
-                           x2f[:, None], y2f[:, None])[:, 0]
+        d_best = cuda_fgate.sampson9(fb[:, None, :], x1f[:, None], y1f[:, None],
+                                     x2f[:, None], y2f[:, None])[:, 0]
         inl_best = (d_best < thr) & mask
         cnt_best = torch.sum(inl_best, dim=1)
 
         # ---- guarded all-inlier refit ----------------------------------
         w = inl_best.to(pts1.dtype)
         fr = _solve_f9(x1f, y1f, x2f, y2f, w, torch.clamp(torch.sum(w, -1), min=1.0))
-        d_refit = _sampson9(fr[:, None, :], x1f[:, None], y1f[:, None],
-                            x2f[:, None], y2f[:, None])[:, 0]
+        d_refit = cuda_fgate.sampson9(fr[:, None, :], x1f[:, None], y1f[:, None],
+                                      x2f[:, None], y2f[:, None])[:, 0]
         inl_refit = (d_refit < thr) & mask
         better = (torch.sum(inl_refit, dim=1) >= cnt_best)[:, None]
         return torch.where(better, inl_refit, inl_best)

@@ -16,8 +16,10 @@ non-prefix masks, 0 to 100 iterations), the
 packed-int32 kNN kernel against its plain version and through the port's
 ``scripts/check_packed.py``, and the level-by-level kNN kernel of
 ``scripts/profile_knn_kernel.py`` against its plain version at every
-level; and, beside the kernels, the homography decomposition of the
-initial pair on the card against the CPU's.
+level, the F-gate's Sampson-count kernel (kernel 7) against its plain
+version at ``chip_smoke.FGATE_CASES``' shapes and over a pass of the
+benchmark's matching cell; and, beside the kernels, the homography
+decomposition of the initial pair on the card against the CPU's.
 """
 
 import os
@@ -109,3 +111,25 @@ def test_homography_candidates_equal_on_the_card(card):
                                       epipolar.decompose_homography(H.to(card))):
             torch.testing.assert_close(Rg.cpu(), Rc, atol=1e-4, rtol=0)
             torch.testing.assert_close(tg.cpu(), tc, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(chip_smoke.FGATE_CASES))
+def test_fgate_counts_kernel_equals_plain(card, case):
+    """Kernel 7's inlier counts equal its plain version's bit for bit (an
+    all-masked pair, F = 0 and a NaN hypothesis in every case)."""
+    chip_smoke.fgate_case(card, case)
+
+
+@pytest.mark.cuda
+def test_fgate_counts_wrapper_refuses_and_counts_launches(card):
+    chip_smoke.fgate_wrapper_checks(card)
+
+
+@pytest.mark.cuda
+def test_fgate_counts_cell_pass(card):
+    """One launch a gated chunk over a pass of the benchmark's matching
+    cell, and the pass's tables equal to the plain chain's."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    _, launches, _, _ = chip_smoke.fgate_cell_pass(card, here)
+    assert launches == 10

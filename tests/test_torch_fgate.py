@@ -11,9 +11,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from reconstructor_tpu.geometry import fgate as jfgate
 from reconstructor_tpu.matching import gated as jgated
+from reconstructor_tpu_torch.geometry import cuda_fgate
 from reconstructor_tpu_torch.geometry import fgate as tfgate
 from reconstructor_tpu_torch.matching import gated as tgated
 
@@ -50,6 +52,45 @@ class TestFundamentalGate:
         inl_j, inl_t = self._both(p1, p2, m, stride)
         np.testing.assert_array_equal(inl_j, inl_t)
         assert inl_t[0].sum() > 100
+
+    @pytest.mark.parametrize("stride", [1, 4])
+    def test_sampson_counts_plain_equals_inline_chain(self, stride):
+        """Kernel 7's plain version (and its wrapper, which runs it for CPU
+        tensors) counts exactly what the two lines it replaced in
+        ``filter_pairs_scalarized`` counted: hypotheses solved from the
+        gate's own minimal samples plus F = 0 and an F holding a NaN,
+        masks with holes that are not a prefix, one pair all masked."""
+        rng = np.random.default_rng(3)
+        p1, p2, m = self._chunk(rng, noise=0.4, sizes=(200, 120, 60, 9))
+        m[:, 5:40:3] = False
+        m[3] = False
+        B, K, H = p1.shape[0], p1.shape[1], 64
+        P1, P2, M = t(p1), t(p2), t(m)
+        idx = torch.from_numpy(rng.integers(0, 60, (B, H, 8)))
+        hx1, hy1 = (torch.gather(P1[..., c], 1, idx.reshape(B, -1)).reshape(B, H, 8)
+                    for c in (0, 1))
+        hx2, hy2 = (torch.gather(P2[..., c], 1, idx.reshape(B, -1)).reshape(B, H, 8)
+                    for c in (0, 1))
+        f = tfgate._solve_f9(hx1, hy1, hx2, hy2, torch.ones_like(hx1), 8.0)
+        f[:, 0] = 0.0
+        f[:, 1, 4] = float("nan")
+        thr = 3.0 * 3.0
+        # the chain as filter_pairs_scalarized ran it inline
+        x1f, y1f = P1[..., 0], P1[..., 1]
+        x2f, y2f = P2[..., 0], P2[..., 1]
+        xs1, ys1 = x1f[:, ::stride], y1f[:, ::stride]
+        xs2, ys2 = x2f[:, ::stride], y2f[:, ::stride]
+        ms = M[:, ::stride]
+        d = cuda_fgate.sampson9(f, xs1[:, None], ys1[:, None], xs2[:, None], ys2[:, None])
+        inline = torch.sum((d < thr) & ms[:, None, :], dim=-1)
+        plain = cuda_fgate.sampson_counts_plain(f, P1, P2, M, stride, thr)
+        wrapped = cuda_fgate.sampson_counts(f, P1, P2, M, stride, thr)
+        assert plain.dtype == inline.dtype == torch.int64 and plain.shape == (B, H)
+        np.testing.assert_array_equal(plain.numpy(), inline.numpy())
+        np.testing.assert_array_equal(wrapped.numpy(), inline.numpy())
+        S = len(range(0, K, stride))
+        assert (plain[:3, 0] == ms[:3].sum(1)).all() and (plain[:, 1] == 0).all()
+        assert (plain[3] == 0).all() and plain[0].max() > S // 8
 
     def test_scalarized_gate_noisy_agrees(self):
         """0.4 px noise and up to 50% outliers: a minimal sample that is
