@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from reconstructor_tpu_torch.utils import device as devices
+from reconstructor_tpu_torch.utils import device as devices, profiling
 
 AXIS = "shard"
 # seconds a collective (or the rendezvous) may wait before it raises
@@ -43,18 +43,23 @@ DEFAULT_TIMEOUT_S = 300.0
 
 ALL_REDUCES = 0
 ALL_GATHERS = 0
+ALL_REDUCE_BYTES = 0
+ALL_GATHER_BYTES = 0
 
 
 def reset_counts() -> None:
-    global ALL_REDUCES, ALL_GATHERS
+    global ALL_REDUCES, ALL_GATHERS, ALL_REDUCE_BYTES, ALL_GATHER_BYTES
     ALL_REDUCES = 0
     ALL_GATHERS = 0
+    ALL_REDUCE_BYTES = 0
+    ALL_GATHER_BYTES = 0
 
 
 def counts() -> dict:
     """The collective calls that reached a process group since
-    ``reset_counts``."""
-    return {"all_reduce": ALL_REDUCES, "all_gather": ALL_GATHERS}
+    ``reset_counts``, and the bytes this rank contributed to them."""
+    return {"all_reduce": ALL_REDUCES, "all_gather": ALL_GATHERS,
+            "all_reduce_bytes": ALL_REDUCE_BYTES, "all_gather_bytes": ALL_GATHER_BYTES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,12 +200,14 @@ def all_sum(mesh: Mesh, *tensors: torch.Tensor):
     """Each tensor summed over the ranks, as a tuple, in one
     ``all_reduce`` (the tensors share a dtype and are flattened into one
     buffer). A world without a group returns them as they are."""
-    global ALL_REDUCES
+    global ALL_REDUCES, ALL_REDUCE_BYTES
     if mesh.group is None:
         return tensors
-    ALL_REDUCES += 1
-    buf = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    with profiling.annotate("mesh.all_sum"):
+        buf = torch.cat([t.reshape(-1) for t in tensors])
+        ALL_REDUCES += 1
+        ALL_REDUCE_BYTES += buf.numel() * buf.element_size()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
     out, s = [], 0
     for t in tensors:
         out.append(buf[s:s + t.numel()].reshape(t.shape))
@@ -217,18 +224,20 @@ def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     leading axis in rank order, on ``t``'s device. NCCL gathers on the
     card; gloo gathers CPU tensors only, so a card's tensor goes through
     host memory."""
-    global ALL_GATHERS
+    global ALL_GATHERS, ALL_GATHER_BYTES
     if mesh.group is None:
         return t
-    ALL_GATHERS += 1
-    wire = t.to(_WIRE.get(t.dtype, t.dtype)).contiguous()
-    if mesh.backend == "nccl":
-        out = torch.empty((mesh.size * wire.shape[0],) + tuple(wire.shape[1:]),
-                          dtype=wire.dtype, device=wire.device)
-        dist.all_gather_into_tensor(out, wire, group=mesh.group)
-    else:
-        host = wire.cpu()
-        parts = [torch.empty_like(host) for _ in range(mesh.size)]
-        dist.all_gather(parts, host, group=mesh.group)
-        out = torch.cat(parts).to(t.device)
-    return out.to(t.dtype)
+    with profiling.annotate("mesh.all_gather"):
+        wire = t.to(_WIRE.get(t.dtype, t.dtype)).contiguous()
+        ALL_GATHERS += 1
+        ALL_GATHER_BYTES += wire.numel() * wire.element_size()
+        if mesh.backend == "nccl":
+            out = torch.empty((mesh.size * wire.shape[0],) + tuple(wire.shape[1:]),
+                              dtype=wire.dtype, device=wire.device)
+            dist.all_gather_into_tensor(out, wire, group=mesh.group)
+        else:
+            host = wire.cpu()
+            parts = [torch.empty_like(host) for _ in range(mesh.size)]
+            dist.all_gather(parts, host, group=mesh.group)
+            out = torch.cat(parts).to(t.device)
+        return out.to(t.dtype)
