@@ -8,7 +8,7 @@
 Phases, each printing one or more lines with its elapsed seconds:
 
 1. device   — the card's name and power limit (nvidia-smi).
-2. build    — nvcc builds the seven CUDA kernel sources in this checkout,
+2. build    — nvcc builds the eight CUDA kernel sources in this checkout,
               side by side (one nvcc process per source), and prints every
               kernel's registers, static shared memory and spills
               (``-Xptxas -v``), the bf16 kNN launch that the kNN, packed
@@ -162,13 +162,20 @@ Phases, each printing one or more lines with its elapsed seconds:
               how many of 10 single draws pass on the run's matches.
 15. pcg     — (a) the default path with ``ba_solver="pcg"``: every bundle
               adjustment through the implicit-Schur PCG solver (counted),
-              the segment-sum and fused Schur-sum kernels launched (the
-              same counts in both runs), with the e2e phase's limits;
+              the segment-sum, fused Schur-sum and point-block kernels
+              launched (the same counts in both runs), with the e2e
+              phase's limits;
               run twice, both as users run it, and the two end states must
               be equal bit for bit (every sum over observations in a fixed
               order); then the segment-sum kernel on the J_c^T r rows of
               the run's last BA problem and the Schur-sum kernel on its Y,
-              against their plain versions, timed;
+              against their plain versions, timed; then the point-block
+              kernel (kernel 8, H_pp^-1 v) at the PCG cells' L (2^20,
+              2^23) and at that problem's L on random SPD inverses: equal
+              bit for bit to ``block3_matvec_reference`` (its fixed
+              order) everywhere and to the einsum it replaced at the
+              cells' L, timed beside that einsum, a ``bmm`` of contiguous
+              blocks and its bound (60 B a landmark at 3.35 TB/s);
               (b) a street-scale problem over
               the dense budget (100 cameras x 100,000 points, ~5e5
               observations, built on the card from a seed with
@@ -1602,7 +1609,7 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
     (reconstructor, state, launches, summary)."""
     import numpy as np
     import torch
-    from reconstructor_tpu_torch.ba import cuda_schur, cuda_segsum
+    from reconstructor_tpu_torch.ba import cuda_blocks, cuda_schur, cuda_segsum
     from reconstructor_tpu_torch.eval import synth
     from reconstructor_tpu_torch.geometry import cuda_fgate
     from reconstructor_tpu_torch.matching import cuda_knn, cuda_sinkhorn
@@ -1615,6 +1622,7 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
     cuda_sinkhorn.reset_launches()
     cuda_segsum.reset_launches()
     cuda_schur.reset_launches()
+    cuda_blocks.reset_launches()
     cuda_fgate.reset_launches()
     t = time.perf_counter()
     state = rec.detect_features_from_images(imgs)
@@ -1628,7 +1636,7 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
     t_rec = time.perf_counter() - t
     launches = {"knn_top2": cuda_knn.LAUNCHES, "sinkhorn": cuda_sinkhorn.LAUNCHES,
                 "seg_sum": cuda_segsum.LAUNCHES, "schur_sums": cuda_schur.LAUNCHES,
-                "sampson_counts": cuda_fgate.LAUNCHES}
+                "block3_matvec": cuda_blocks.LAUNCHES, "sampson_counts": cuda_fgate.LAUNCHES}
     for name, ms in rec.timer.totals().items():
         log(phase, f"stage '{name}': {ms / 1e3:.2f}s")
     ate = synth.pose_ate(state.poses, scene["poses"])
@@ -2062,12 +2070,13 @@ def check_same_state(a, b, what: str) -> None:
 def phase_pcg_path(dev, tmp: str, scene, imgs, cfg):
     """The default path with ``ba_solver="pcg"``, twice, both as users run
     it: every bundle adjustment through the implicit-Schur PCG solver
-    (counted), none through the dense one, kernels 5 and 6 launched,
+    (counted), none through the dense one, kernels 5, 6 and 8 launched,
     as often in both runs; the second run must end in the first's state bit for bit
     (every sum over observations is the fixed-order kernel, no atomics).
     Then kernels 5 and 6 on the last BA problem of the run, against their
     plain versions. Returns (summary, state, (launches, kernel 5's and
-    kernel 6's comparisons and timings)), the mesh phase's reference."""
+    kernel 6's comparisons and timings, the last problem's landmark
+    count)), the mesh phase's reference."""
     from reconstructor_tpu_torch.ba import distributed
     last = {}
     real_pcg = distributed.solve_pcg
@@ -2087,7 +2096,7 @@ def phase_pcg_path(dev, tmp: str, scene, imgs, cfg):
                f"25/25 views, 2351 landmarks, 7.29% ATE)")
     check(launches["knn_top2"] > 0 and launches2["knn_top2"] > 0,
           "the PCG path never launched the kNN kernel")
-    for k in ("seg_sum", "schur_sums"):
+    for k in ("seg_sum", "schur_sums", "block3_matvec"):
         check(launches[k] > 0 and launches2[k] == launches[k],
               f"the PCG path's {k} launches: {launches[k]}, {launches2[k]}")
     check(calls["pcg"] > 0 and calls["dense"] == 0 and calls["distributed"] == 0
@@ -2100,7 +2109,8 @@ def phase_pcg_path(dev, tmp: str, scene, imgs, cfg):
     log("pcg-again", json.dumps(summary2))
     check_same_state(state, again, "two PCG-routed runs")
     log("pcg", f"the two runs end in one state bit for bit: {summary['state_sha256']}")
-    return summary, state, (launches, *segsum_path_problem(last["prob"]))
+    return summary, state, (launches, *segsum_path_problem(last["prob"]),
+                            last["prob"].points.shape[0])
 
 
 def phase_pcg_street(dev, cfg):
@@ -2477,6 +2487,77 @@ def segsum_path_problem(prob):
     return k5, k6
 
 
+# the PCG point-block products (kernel 8)
+BLOCKS_CELL_L = (1 << 20, 1 << 23)   # padded landmarks of ba-venice1778-pcg, ba-final13682-dist4
+BLOCK_BYTES = 60                     # a landmark: 9 + 3 floats read, 3 written
+
+
+def blocks_case(dev, L: int, at_cell: bool) -> dict:
+    """Kernel 8 on random SPD inverses' (9, L) planes and a v whose rows
+    span 2^-10 .. 2^9: three calls equal, equal bit for bit to
+    ``block3_matvec_reference``, and at a PCG cell's L (``at_cell``) to
+    the einsum it replaced there; then the kernel (events; traced device
+    time and launches a call), that einsum, a ``bmm`` of contiguous
+    (L, 3, 3) blocks and the bound."""
+    import torch
+    from reconstructor_tpu_torch.ba import cuda_blocks as K, distributed
+    g = torch.Generator(device=dev)
+    g.manual_seed(L)
+    B = torch.randn(L, 3, 3, generator=g, device=dev)
+    h9 = distributed._inv3x3(B @ B.transpose(1, 2) + 0.1 * torch.eye(3, device=dev))
+    del B
+    v = torch.randn(L, 3, generator=g, device=dev)
+    v = v * torch.exp2(torch.randint(-10, 10, (L, 1), generator=g, device=dev).float())
+    got = [K.block3_matvec(h9, v) for _ in range(3)]
+    torch.cuda.synchronize()
+    label = f"L={L:,}"
+    check(torch.equal(got[0], got[1]) and torch.equal(got[1], got[2]),
+          f"blocks {label}: three calls differ")
+    bits = lambda x: x.contiguous().view(torch.int32)
+    n_ref = int((bits(got[0]) != bits(K.block3_matvec_reference(h9, v))).sum())
+    plain = K.block3_matvec_plain(h9, v)
+    n_einsum = int((bits(got[0]) != bits(plain)).sum())
+    blocks = h9.T.contiguous().reshape(L, 3, 3)
+    fn = lambda: K.block3_matvec(h9, v)
+    library = lambda: torch.bmm(blocks, v[:, :, None])
+    res = {"L": L, "differ_from_reference": n_ref, "differ_from_einsum": n_einsum,
+           "max_abs_err": float((got[0] - plain).abs().max()),
+           "ms": cuda_ms(fn, iters=50, warmup=5),
+           "plain_ms": cuda_ms(lambda: K.block3_matvec_plain(h9, v), iters=20, warmup=3),
+           "library_ms": cuda_ms(library, iters=20, warmup=3),
+           "bound_ms": L * BLOCK_BYTES / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    tr, tr_plain = trace_calls(fn), trace_calls(lambda: K.block3_matvec_plain(h9, v))
+    res.update(device_ms=tr["busy_ms"], launches_a_call=tr["launches"],
+               plain_device_ms=tr_plain["busy_ms"],
+               plain_launches_a_call=tr_plain["launches"], kernels_ms=tr["kernels_ms"],
+               plain_kernels_ms=tr_plain["kernels_ms"],
+               bound_share=res["bound_ms"] / res["ms"])
+    log("blocks", f"{label}{' (a PCG cell)' if at_cell else ''}: " + json.dumps(res))
+    check(n_ref == 0, f"blocks {label}: {n_ref} of {3 * L} values differ from the reference")
+    check(not at_cell or n_einsum == 0,
+          f"blocks {label}: {n_einsum} of {3 * L} values differ from the einsum at a cell's L")
+    return res
+
+
+def phase_blocks(dev, path_L: int) -> dict:
+    """Kernel 8 at the PCG cells' L and at the pcg path's last problem's
+    ``path_L``. Returns the kernels line's row (at L = 2^23; launches
+    filled in by the caller)."""
+    import torch
+    from reconstructor_tpu_torch.ba import cuda_blocks as K
+    t = time.perf_counter()
+    res = {}
+    for L in (*BLOCKS_CELL_L, path_L):
+        res[L] = blocks_case(dev, L, L in BLOCKS_CELL_L)
+        torch.cuda.empty_cache()
+    log("blocks", f"phase {time.perf_counter() - t:.1f}s")
+    top = res[BLOCKS_CELL_L[-1]]
+    return {"name": "block3_matvec", "route": "cuda",
+            "source": "reconstructor_tpu_torch/" + K.SOURCE, "replaces": K.REPLACES,
+            **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}
+
+
 # ----------------------------------------------------------------------
 # the multi-device path
 # ----------------------------------------------------------------------
@@ -2508,6 +2589,7 @@ def mesh_path(dev, tmp: str, mesh, scene, imgs, cfg, pcg_run):
     check(launches["knn_top2"] > 0, "the mesh path never launched the kNN kernel")
     check(launches["seg_sum"] > 0, "the mesh path never launched the segment-sum kernel")
     check(launches["schur_sums"] > 0, "the mesh path never launched the fused Schur-sum kernel")
+    check(launches["block3_matvec"] > 0, "the mesh path never launched the point-block kernel")
     check(calls["distributed"] > 0 and calls["pcg"] == 0 and calls["dense"] == 0,
           f"the mesh path's bundle adjustments went elsewhere: {calls}")
     summary.update(ba_calls=calls, collectives=collectives, state_sha256=state_sha256(state))
@@ -3536,7 +3618,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, here)
-    from reconstructor_tpu_torch.ba import cuda_schur, cuda_segsum
+    from reconstructor_tpu_torch.ba import cuda_blocks, cuda_schur, cuda_segsum
     from reconstructor_tpu_torch.config import ReconstructorConfig
     from reconstructor_tpu_torch.geometry import cuda_fgate
     from reconstructor_tpu_torch.matching import cuda_knn, cuda_sinkhorn
@@ -3556,7 +3638,7 @@ def main(argv=None) -> int:
         return src, time.perf_counter() - t
     sources = [cuda_knn.SOURCE, cuda_sinkhorn.SOURCE, cuda_knn.PACKED_SOURCE,
                profile_knn_kernel.SOURCE, cuda_segsum.SOURCE, cuda_schur.SOURCE,
-               cuda_fgate.SOURCE]
+               cuda_fgate.SOURCE, cuda_blocks.SOURCE]
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         for src, secs in pool.map(build, sources):
             log("build", f"{src}: {secs:.1f}s")
@@ -3625,8 +3707,8 @@ def main(argv=None) -> int:
         orb_cfg = ReconstructorConfig(detector="orb", rng_seed=args.rng_seed)
         phase_orb(dev, tmp, scene, imgs, orb_cfg)
         pcg_cfg = ReconstructorConfig(ba_solver="pcg", rng_seed=args.rng_seed)
-        pcg_summary, pcg_state, (launches, res, fused) = phase_pcg_path(dev, tmp, scene, imgs,
-                                                                        pcg_cfg)
+        pcg_summary, pcg_state, (launches, res, fused, path_L) = phase_pcg_path(
+            dev, tmp, scene, imgs, pcg_cfg)
         kernels.append({"name": "seg_sum", "route": "cuda",
                         "source": "reconstructor_tpu_torch/" + cuda_segsum.SOURCE,
                         "replaces": cuda_segsum.REPLACES, "launches": launches["seg_sum"],
@@ -3641,6 +3723,7 @@ def main(argv=None) -> int:
                         **{k: sum(r[k] for r in fused.values())
                            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
                         "bound_by": "bytes"})
+        kernels.append({**phase_blocks(dev, path_L), "launches": launches["block3_matvec"]})
         phase_pcg_street(dev, ReconstructorConfig(rng_seed=args.rng_seed))
         phase_mesh(dev, tmp, here, scene, imgs, pcg_cfg, (pcg_summary, pcg_state), learned_run)
         phase_resume(dev, tmp, scene, imgs, orb_cfg.with_(checkpoint_every_views=3))

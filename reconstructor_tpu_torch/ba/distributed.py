@@ -19,7 +19,10 @@ per-observation coupling Y_o = Jc_o^T Jp_o. Memory is O(C + L + O).
   and W^T u and W z, with their gather and product, one launch each of
   the fused kernel 6 (``ba/csrc/schur_sums.cu``); no atomics on values.
   On the CPU both are ``index_add_`` in observation order, so a solve
-  repeats bit for bit on either device.
+  repeats bit for bit on either device. The products H_pp^-1 v over every
+  landmark are kernel 8 (``ba/csrc/point_blocks.cu``, one fixed rounding
+  order) on the card, on ``_inv3x3``'s (9, L) planes, and the einsum it
+  replaced on the CPU.
 - The CG early exit is a frozen-state flag: once ||r|| <= tol ||rhs||,
   x, r and p stop changing, which gives the early exit's x. The host reads
   the flag every ``_CG_CHECK`` iterations to stop the loop.
@@ -48,7 +51,7 @@ import functools
 import numpy as np
 import torch
 
-from reconstructor_tpu_torch.ba import cuda_schur, cuda_segsum, lm as ba_lm
+from reconstructor_tpu_torch.ba import cuda_blocks, cuda_schur, cuda_segsum, lm as ba_lm
 from reconstructor_tpu_torch.parallel.mesh import Mesh, all_sum, replicate, shard_rows
 from reconstructor_tpu_torch.utils import profiling
 
@@ -71,10 +74,11 @@ def _layouts(prob: ba_lm.BAProblem) -> cuda_schur.SchurLayout:
 
 
 def _inv3x3(m: torch.Tensor) -> torch.Tensor:
-    """Closed-form adjugate inverse of (L, 3, 3) blocks (``ba.lm``'s
-    structure-of-arrays version, in the JAX package's (L, 3, 3) layout)."""
-    L = m.shape[0]
-    return ba_lm._inv3x3_soa(m.reshape(L, 9).T).T.reshape(L, 3, 3)
+    """Closed-form adjugate inverse of (L, 3, 3) blocks, as ``ba.lm``'s
+    structure-of-arrays version leaves it: (9, L) planes, plane 3 i + j
+    holding entry (i, j) of every block (what ``cuda_blocks.block3_matvec``
+    reads)."""
+    return ba_lm._inv3x3_soa(m.reshape(m.shape[0], 9).T)
 
 
 def _build_blocks(prob: ba_lm.BAProblem, cam, pts, huber_delta: float = 0.0):
@@ -146,11 +150,12 @@ def _build_pcg_blocks(prob: ba_lm.BAProblem, lay: cuda_schur.SchurLayout, cam, p
 def _schur_matvec(lay: cuda_schur.SchurLayout, Y, H_cc, H_pp_inv, u_flat: torch.Tensor,
                   reduce=_local) -> torch.Tensor:
     """S u = Hcc u - W Hpp^-1 W^T u without forming S: two sums over
-    observations (``reduce`` completes each over the ranks)."""
+    observations (``reduce`` completes each over the ranks); ``H_pp_inv``
+    is ``_inv3x3``'s (9, L) planes."""
     C = H_cc.shape[0]
     u = u_flat.reshape(C, 12)
     (WtU,) = reduce(cuda_schur.ytu_sum(Y, u, lay))                      # (L, 3)
-    z = torch.einsum("lij,lj->li", H_pp_inv, WtU)
+    z = cuda_blocks.block3_matvec(H_pp_inv, WtU)
     (Wz,) = reduce(cuda_schur.yz_sum(Y, z, lay))                        # (C, 12)
     Hu = torch.einsum("cij,cj->ci", H_cc, u)
     return (Hu - Wz).reshape(-1)
@@ -176,11 +181,11 @@ def _lm_step_pcg(prob: ba_lm.BAProblem, lay: cuda_schur.SchurLayout, blocks, lam
     else:
         H_cc = H_cc + lam * eye12 + fixed_c[:, :, None] * eye12
         H_pp = H_pp + float(np.float32(lam) + np.float32(1e-8)) * eye3
-    H_pp_inv = _inv3x3(H_pp)                                            # (L, 3, 3)
+    H_pp_inv = _inv3x3(H_pp)                                            # (9, L)
     schur_matvec = functools.partial(_schur_matvec, lay, Y, H_cc, H_pp_inv, reduce=reduce)
 
     # W Hpp^-1 g_p for the reduced rhs
-    zg = torch.einsum("lij,lj->li", H_pp_inv, g_p)
+    zg = cuda_blocks.block3_matvec(H_pp_inv, g_p)
     (Wzg,) = reduce(cuda_schur.yz_sum(Y, zg, lay))
     rhs = -(g_c - Wzg).reshape(-1)
 
@@ -192,7 +197,7 @@ def _lm_step_pcg(prob: ba_lm.BAProblem, lay: cuda_schur.SchurLayout, blocks, lam
     d_cam = _pcg(schur_matvec, rhs, precond, cg_iters, cg_tol).reshape(C, 12)
 
     (WtD,) = reduce(cuda_schur.ytu_sum(Y, d_cam, lay))
-    d_pt = -torch.einsum("lij,lj->li", H_pp_inv, g_p + WtD)
+    d_pt = -cuda_blocks.block3_matvec(H_pp_inv, g_p + WtD)
     return d_cam * prob.cam_free, d_pt
 
 

@@ -14,7 +14,7 @@ two-term model of ranks that share one device
 to the smallest and the largest world, and checks the fit at the sizes
 between them (``pred``, ``rel_err``). It then times the replicated pieces
 alone on one device of the worlds' kind, 10 LM iterations' worth: the
-(L, 3, 3) H_pp inverse (``distributed._inv3x3``), the (C, 12, 12)
+H_pp inverse as (9, L) planes (``distributed._inv3x3``), the (C, 12, 12)
 block-Jacobi inverse (``torch.linalg.inv``, as ``_lm_step_pcg``) and
 the CG vector arithmetic on (C * 12) vectors (32 iterations of two dots,
 three updates and a norm). Prints one JSON object and writes no file;

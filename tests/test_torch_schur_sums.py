@@ -137,17 +137,18 @@ def test_layout_other_side_and_chunks(case):
 
 def test_matvec_equals_the_unfused_chain():
     """``distributed._schur_matvec`` on the CPU computes what it computed
-    before kernel 6, bit for bit."""
+    before kernels 6 and 8, bit for bit (H_pp^-1 as ``_inv3x3``'s (9, L)
+    planes, multiplied through their strided (L, 3, 3) view)."""
     lay, (cam, pt, mask, Y, u, z) = layout_of("masked_rows")
     n_cam, n_pt = CASES["masked_rows"][2], CASES["masked_rows"][3]
     rng = np.random.default_rng(9)
     H_cc = torch.from_numpy(rng.standard_normal((n_cam, 12, 12)).astype(np.float32))
-    H_pp_inv = torch.from_numpy(rng.standard_normal((n_pt, 3, 3)).astype(np.float32))
+    H_pp_inv = torch.from_numpy(rng.standard_normal((9, n_pt)).astype(np.float32))  # planes
     Yt, uflat = torch.from_numpy(Y), torch.from_numpy(u).reshape(-1)
     got = distributed._schur_matvec(lay, Yt, H_cc, H_pp_inv, uflat)
     uu = uflat.reshape(n_cam, 12)
     WtU = cuda_segsum.seg_sum(torch.einsum("oij,oi->oj", Yt, uu[lay.obs_cam]), lay.pt)
-    zz = torch.einsum("lij,lj->li", H_pp_inv, WtU)
+    zz = torch.einsum("lij,lj->li", H_pp_inv.T.reshape(n_pt, 3, 3), WtU)
     Wz = cuda_segsum.seg_sum(torch.einsum("oij,oj->oi", Yt, zz[lay.obs_pt]), lay.cam)
     want = (torch.einsum("cij,cj->ci", H_cc, uu) - Wz).reshape(-1)
     assert torch.equal(got, want)
