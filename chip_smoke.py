@@ -346,6 +346,14 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def launched(*launchers: str) -> int:
+    """Kernel launches of the named launchers (``utils.cuda_build``'s
+    counters) since the last ``reset_launches``."""
+    from reconstructor_tpu_torch.utils import cuda_build
+    n = cuda_build.launches()
+    return sum(n[k] for k in launchers)
+
+
 def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -614,7 +622,7 @@ def time_knn(desc, mask, chunk, label: str, kernel=None, plain=None, bias_elt: i
 
 def phase_kernels(dev, N: int = 25, K: int = 4096, D: int = 128):
     import torch
-    from reconstructor_tpu_torch.matching import cuda_knn
+    from reconstructor_tpu_torch.utils import cuda_build
     chunk = all_pairs(N, dev)
     desc_q, mask_q = knn_inputs(N, K, D, seed=1, quantized=True, dev=dev)
     compare_knn(desc_q, mask_q, chunk, exact=True, tol=0.0, min_match_agree=1.0,
@@ -639,7 +647,7 @@ def phase_kernels(dev, N: int = 25, K: int = 4096, D: int = 128):
     knn_non_prefix_masks(dev)
     knn_default_shape(dev)
     knn_wide_descriptors(dev)
-    cuda_knn.reset_launches()
+    cuda_build.reset_launches()
     return desc, mask, chunk
 
 
@@ -848,6 +856,7 @@ def sinkhorn_rectangular(dev, alpha, iters: int = 40):
 def phase_sinkhorn(dev):
     import torch
     from reconstructor_tpu_torch.matching import cuda_sinkhorn
+    from reconstructor_tpu_torch.utils import cuda_build
     alpha = torch.tensor(1.0, device=dev)
     for B, K, iters, plant in ((8, 1024, 100, 10.0), (8, 256, 50, 8.0)):
         scores, m0, m1 = sinkhorn_inputs(B, K, seed=K, plant=plant, dev=dev)
@@ -877,7 +886,7 @@ def phase_sinkhorn(dev):
                                                        f"iters={iters}", marginal_tol=None)
         log("sinkhorn", f"launch plan B={B} M1=N1={K + 1}: "
                         + json.dumps(cuda_sinkhorn.plan(B, K + 1, K + 1, dev)))
-    cuda_sinkhorn.reset_launches()
+    cuda_build.reset_launches()
 
 
 # ----------------------------------------------------------------------
@@ -1118,6 +1127,7 @@ def phase_packed(dev, N: int = 25, K: int = 4096, D: int = 128):
     import torch
     from reconstructor_tpu_torch.matching import cuda_knn
     from reconstructor_tpu_torch.scripts import check_packed
+    from reconstructor_tpu_torch.utils import cuda_build
     packed_edge_cases(dev)
     chunk = all_pairs(N, dev)
     desc_q, mask_q = knn_inputs(N, K, D, seed=1, quantized=True, dev=dev)
@@ -1146,12 +1156,12 @@ def phase_packed(dev, N: int = 25, K: int = 4096, D: int = 128):
     torch.cuda.empty_cache()
 
     # the main path: check_packed, packed against the float kernel
-    cuda_knn.reset_launches()
+    cuda_build.reset_launches()
     out = check_packed.main([])
-    bf16 = cuda_knn.LAUNCHES_PACKED_BF16
-    launches = {torch.float32: cuda_knn.LAUNCHES_PACKED - bf16, torch.bfloat16: bf16}
+    launches = {torch.float32: launched("knn_packed_launch"),
+                torch.bfloat16: launched("knn_packed_launch_bf16")}
     log("packed", f"check_packed: {json.dumps(out)}, packed launches "
-                  f"{cuda_knn.LAUNCHES_PACKED} (bf16 {bf16})")
+                  f"{sum(launches.values())} (bf16 {launches[torch.bfloat16]})")
     for dt, n in launches.items():
         check(n > 0, f"check_packed never launched the packed kernel in {dt}")
     for dt in ("float32", "bfloat16"):
@@ -1173,7 +1183,7 @@ def phase_packed(dev, N: int = 25, K: int = 4096, D: int = 128):
         timing[dt] = time_knn(desc, mask, chunk, "packed kernel, check_packed inputs",
                               kernel=lambda: cuda_knn.knn_topk2(desc, bias, chunk, packed=True),
                               plain=lambda: cuda_knn.knn_topk2_packed_plain(desc, bias, chunk))
-    cuda_knn.reset_launches()
+    cuda_build.reset_launches()
     return launches, res, timing
 
 
@@ -1309,8 +1319,8 @@ def phase_levels(dev, K: int = 4096):
     descriptors; returns (launches, result, timing of level 3 on the
     sweep's input)."""
     import torch
-    from reconstructor_tpu_torch.matching import cuda_knn
     from reconstructor_tpu_torch.scripts import profile_knn_kernel as pk
+    from reconstructor_tpu_torch.utils import cuda_build
     for kind in ("exact", "sweep"):
         desc, chunk = level_inputs(K, dev, kind)
         for dt in (torch.float32, torch.bfloat16):
@@ -1321,10 +1331,9 @@ def phase_levels(dev, K: int = 4096):
     compare_levels(unit16, chunk, "unit", f"K={K} bf16 random unit")
     del desc
     torch.cuda.empty_cache()
-    pk.reset_launches()
-    cuda_knn.reset_launches()
+    cuda_build.reset_launches()
     out = pk.main([])
-    launches = pk.LAUNCHES
+    launches = launched("knn_levels_launch")
     log("levels", f"profile_knn_kernel sweep: {json.dumps(out)}, launches {launches}")
     check(launches > 0, "profile_knn_kernel never launched the level kernel")
     # every level on the sweep's first input (the script's own seed), bf16
@@ -1337,8 +1346,7 @@ def phase_levels(dev, K: int = 4096):
     time_knn(desc, torch.ones(desc.shape[:2], dtype=torch.bool, device=dev), chunk,
              "kNN kernel, zero bias, sweep input")
     time_levels(unit16, chunk, "random unit")
-    pk.reset_launches()
-    cuda_knn.reset_launches()
+    cuda_build.reset_launches()
     return launches, {"max_abs_err": err}, timing[3]
 
 
@@ -1409,10 +1417,11 @@ def fgate_compare(f, p1, p2, mask, stride: int, label: str, thr: float = 9.0):
     Returns (a summary, the counts)."""
     import torch
     from reconstructor_tpu_torch.geometry import cuda_fgate
-    before = cuda_fgate.LAUNCHES
+    before = launched("sampson_count_launch")
     got = cuda_fgate.sampson_counts(f, p1, p2, mask, stride, thr)
     torch.cuda.synchronize()
-    check(cuda_fgate.LAUNCHES == before + 1, f"{label}: {cuda_fgate.LAUNCHES - before} launches")
+    n = launched("sampson_count_launch") - before
+    check(n == 1, f"{label}: {n} launches")
     want = cuda_fgate.sampson_counts_plain(f, p1, p2, mask, stride, thr)
     check(got.dtype == want.dtype and got.shape == want.shape,
           f"{label}: kernel {got.dtype} {tuple(got.shape)}, plain {want.dtype} "
@@ -1448,7 +1457,7 @@ def fgate_case(dev, name: str) -> dict:
 
 def fgate_wrapper_checks(dev) -> None:
     """The wrapper raises on a float64 or non-contiguous CUDA input without
-    launching, and ``LAUNCHES`` rises by one for each gated chunk."""
+    launching, and kernel 7's launch count rises by one for each gated chunk."""
     import torch
     from reconstructor_tpu_torch.geometry import cuda_fgate
     from reconstructor_tpu_torch.matching import gated
@@ -1458,19 +1467,19 @@ def fgate_wrapper_checks(dev) -> None:
            "non-contiguous f": ((torch.cat([f, f], -1)[..., :9], p1, p2, mask), ValueError),
            "non-contiguous pts2": ((f, p1, torch.cat([p2, p2], -1)[..., :2], mask), ValueError),
            "non-contiguous mask": ((f, p1, p2, torch.cat([mask, mask], 1)[:, ::2]), ValueError)}
-    before = cuda_fgate.LAUNCHES
+    before = launched("sampson_count_launch")
     for what, (args, err) in bad.items():
         try:
             cuda_fgate.sampson_counts(*args, 4, 9.0)
         except err:
             continue
         raise AssertionError(f"sampson_counts took a {what}")
-    check(cuda_fgate.LAUNCHES == before, "a refused call launched")
+    check(launched("sampson_count_launch") == before, "a refused call launched")
     g = torch.Generator(device=dev).manual_seed(1)
     for n in (1, 2):
         gated.filter_pairs(p1, p2, mask, num_hypotheses=256, thresh_px=3.0, generator=g)
-        check(cuda_fgate.LAUNCHES == before + n,
-              f"{n} gated chunks, {cuda_fgate.LAUNCHES - before} launches")
+        got = launched("sampson_count_launch") - before
+        check(got == n, f"{n} gated chunks, {got} launches")
     log("fgate", f"wrapper: refused {', '.join(bad)}; one launch a gated chunk")
 
 
@@ -1518,9 +1527,9 @@ def fgate_cell_pass(dev, here: str, seed: int = 11):
         finally:
             cuda_fgate.sampson_counts = kernel
     one_pass(kernel)                                          # warm: kernels built, loaded
-    before = cuda_fgate.LAUNCHES
+    before = launched("sampson_count_launch")
     tables, pass_s = one_pass(recording)
-    launches = cuda_fgate.LAUNCHES - before
+    launches = launched("sampson_count_launch") - before
     chunks = -(-N * (N - 1) // 2 // cfg.match_chunk_pairs_fused)
     check(launches == chunks == len(seen), f"cell pass: {launches} launches, {chunks} chunks, "
                                            f"{len(seen)} gate calls")
@@ -1609,21 +1618,14 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
     (reconstructor, state, launches, summary)."""
     import numpy as np
     import torch
-    from reconstructor_tpu_torch.ba import cuda_blocks, cuda_schur, cuda_segsum
     from reconstructor_tpu_torch.eval import synth
-    from reconstructor_tpu_torch.geometry import cuda_fgate
-    from reconstructor_tpu_torch.matching import cuda_knn, cuda_sinkhorn
     from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
+    from reconstructor_tpu_torch.utils import cuda_build
 
     n_views = len(imgs)
     out = os.path.join(tmp, phase)
     rec = IncrementalReconstructor(cfg, verbose=False, device=dev, mesh=mesh)
-    cuda_knn.reset_launches()
-    cuda_sinkhorn.reset_launches()
-    cuda_segsum.reset_launches()
-    cuda_schur.reset_launches()
-    cuda_blocks.reset_launches()
-    cuda_fgate.reset_launches()
+    cuda_build.reset_launches()
     t = time.perf_counter()
     state = rec.detect_features_from_images(imgs)
     torch.cuda.synchronize()
@@ -1634,9 +1636,11 @@ def run_path(dev, tmp: str, phase: str, scene, imgs, cfg, min_registered: int = 
     state = rec.reconstruct_from_state(state, out_folder=out)
     torch.cuda.synchronize()
     t_rec = time.perf_counter() - t
-    launches = {"knn_top2": cuda_knn.LAUNCHES, "sinkhorn": cuda_sinkhorn.LAUNCHES,
-                "seg_sum": cuda_segsum.LAUNCHES, "schur_sums": cuda_schur.LAUNCHES,
-                "block3_matvec": cuda_blocks.LAUNCHES, "sampson_counts": cuda_fgate.LAUNCHES}
+    launches = {"knn_top2": launched("knn_top2_launch"), "sinkhorn": launched("sinkhorn_launch"),
+                "seg_sum": launched("seg_sum_launch"),
+                "schur_sums": launched("ytu_sum_launch", "yz_sum_launch"),
+                "block3_matvec": launched("block3_matvec_launch"),
+                "sampson_counts": launched("sampson_count_launch")}
     for name, ms in rec.timer.totals().items():
         log(phase, f"stage '{name}': {ms / 1e3:.2f}s")
     ate = synth.pose_ate(state.poses, scene["poses"])
@@ -2121,9 +2125,10 @@ def phase_pcg_street(dev, cfg):
     the gauge camera unmoved."""
     import numpy as np
     import torch
-    from reconstructor_tpu_torch.ba import cuda_schur, cuda_segsum, distributed, lm as ba_lm
+    from reconstructor_tpu_torch.ba import distributed, lm as ba_lm
     from reconstructor_tpu_torch.pipeline import incremental
     from reconstructor_tpu_torch.scripts.profile_pcg_path import street_ba_kwargs, street_problem
+    from reconstructor_tpu_torch.utils import cuda_build
     px_noise = 0.5
     t = time.perf_counter()
     prob, host, O = street_problem(dev, px_noise=px_noise)
@@ -2143,8 +2148,7 @@ def phase_pcg_street(dev, cfg):
     for name, solve in solvers:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        cuda_segsum.reset_launches()
-        cuda_schur.reset_launches()
+        cuda_build.reset_launches()
         t = time.perf_counter()
         res = solve()
         torch.cuda.synchronize()
@@ -2154,8 +2158,8 @@ def phase_pcg_street(dev, cfg):
         out[name] = {"cost_initial": float(res.cost_initial), "cost_final": cost,
                      "rms_px": rms, "iterations": int(res.iterations), "wall_s": wall,
                      "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-                     "seg_sum_launches": cuda_segsum.LAUNCHES,
-                     "schur_sums_launches": cuda_schur.LAUNCHES}
+                     "seg_sum_launches": launched("seg_sum_launch"),
+                     "schur_sums_launches": launched("ytu_sum_launch", "yz_sum_launch")}
         log("pcg", f"street problem, {name}: " + json.dumps(out[name]))
         check(bool(torch.isfinite(res.cam_params).all() and torch.isfinite(res.points).all()),
               f"{name}: non-finite result")
@@ -2605,8 +2609,9 @@ def mesh_superglue(dev, mesh, learned_run):
     inputs: indices and masks equal, scores within 1e-5; the Sinkhorn
     kernel must launch inside the sharded calls."""
     import torch
-    from reconstructor_tpu_torch.matching import cuda_sinkhorn, superglue
+    from reconstructor_tpu_torch.matching import superglue
     from reconstructor_tpu_torch.parallel import sharding
+    from reconstructor_tpu_torch.utils import cuda_build
     rec, state = learned_run
     cfg = rec.config
     net = rec._superglue_params()
@@ -2618,9 +2623,9 @@ def mesh_superglue(dev, mesh, learned_run):
     launches, err, ms = 0, 0.0, {"sharded": 0.0, "batched": 0.0}
     for s in range(0, len(pairs), B):
         chunk = pairs[s:s + B]
-        cuda_sinkhorn.reset_launches()
+        cuda_build.reset_launches()
         a = sharding.match_superglue_sharded(mesh, net, *args, chunk, **kw)
-        launches += cuda_sinkhorn.LAUNCHES
+        launches += launched("sinkhorn_launch")
         b = superglue.match_pairs_batched(net, *args, rec._t(chunk), **kw)
         check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
               f"sharded SuperGlue matches differ from match_pairs_batched on chunk {s // B}")
@@ -2954,6 +2959,7 @@ def phase_measure(dev, tmp: str, scene, imgs) -> list:
     from reconstructor_tpu_torch.scripts import (bench_knn_dtype, exp_match_regression,
                                                  exp_quality, measure_match100,
                                                  profile_detect, profile_match100_decomp)
+    from reconstructor_tpu_torch.utils import cuda_build
     t_phase = time.perf_counter()
     cfg = ReconstructorConfig()
     n = len(imgs)
@@ -2962,9 +2968,9 @@ def phase_measure(dev, tmp: str, scene, imgs) -> list:
 
     # (a) the headline: the main path of this phase, counted
     t = time.perf_counter()
-    cuda_knn.reset_launches()
+    cuda_build.reset_launches()
     head = measure_match100.measure(state, cfg, dev)
-    launches = cuda_knn.LAUNCHES
+    launches = launched("knn_top2_launch")
     state100 = head.pop("state")
     B = cfg.match_chunk_pairs_fused
     chunks = -(-head["n_pairs"] // B)
@@ -3032,10 +3038,10 @@ def phase_measure(dev, tmp: str, scene, imgs) -> list:
 
     # (d) packed against unpacked at both widths
     t = time.perf_counter()
-    cuda_knn.reset_launches()
+    cuda_build.reset_launches()
     reg = exp_match_regression.regress(state, cfg, dev, keep=True,
                                        log=lambda m: log("measure", "(d) " + m))
-    packed_launches = cuda_knn.LAUNCHES_PACKED
+    packed_launches = launched("knn_packed_launch", "knn_packed_launch_bf16")
     agree = packed_agrees(reg["runs"], np.tile(state.kp_mask, (4, 1)), pair_np)
     for r in reg["runs"]:
         r.pop("outputs")
@@ -3403,9 +3409,10 @@ def phase_train_superglue(dev, tmp: str, here: str, imgs, steps: int = SUPERGLUE
     import numpy as np
     import torch
     from reconstructor_tpu_torch.features import superpoint as sp
-    from reconstructor_tpu_torch.matching import cuda_sinkhorn, superglue as sg
+    from reconstructor_tpu_torch.matching import superglue as sg
     from reconstructor_tpu_torch.scripts import distill_fountain as df
     from reconstructor_tpu_torch.scripts import train_superglue as ts
+    from reconstructor_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     log("train-superglue", f"depth: {steps} steps (script: 1500), {pairs} crop pairs "
                            f"(script: 200); widths as the script: CROP {ts.CROP}, 512 keypoints, "
@@ -3437,9 +3444,9 @@ def phase_train_superglue(dev, tmp: str, here: str, imgs, steps: int = SUPERGLUE
     net = ts.small_identity_params(4).to(dev)
     step0 = decode_all(net)
     identity_same = same(step0, decode_all(sg.structured_identity_params().to(dev)))
-    cuda_sinkhorn.reset_launches()
+    cuda_build.reset_launches()
     res = ts.train(net, trn, val, steps, 2e-4, 8, 50)
-    launches = cuda_sinkhorn.LAUNCHES
+    launches = launched("sinkhorn_launch")
     losses = res["losses"]
     first, last = float(losses[:50].mean()), float(losses[-50:].mean())
     for step, f1, prec, rec in res["validations"]:

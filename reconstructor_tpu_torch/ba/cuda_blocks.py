@@ -20,9 +20,8 @@ returns out[l] = H_pp^-1[l] v[l], (L, 3):
 
 The JAX package leaves these products to XLA
 (``reconstructor_tpu/ba/distributed.py:120, 127, 142``); no Pallas kernel.
-``LAUNCHES`` counts kernel launches (plain-version calls do not count).
-The kernel is built with ``nvcc`` for ``sm_90a`` at its first call and
-called through ``ctypes``.
+The kernel is built with ``nvcc`` for ``sm_90a`` at its first call,
+called through ``ctypes`` and counted by ``utils.cuda_build``.
 """
 
 from __future__ import annotations
@@ -31,18 +30,11 @@ import ctypes
 
 import torch
 
-from reconstructor_tpu_torch.ba import cuda_segsum
+from reconstructor_tpu_torch.utils import cuda_build
 
 SOURCE = "ba/csrc/point_blocks.cu"
 # no Pallas kernel: the einsum XLA runs there (the rhs :127, the point step :142)
 REPLACES = "reconstructor_tpu/ba/distributed.py:120"
-
-LAUNCHES = 0
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 def block3_matvec_plain(h9: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -115,10 +107,7 @@ def block3_matvec(h9: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     out = torch.empty(L, 3, dtype=torch.float32, device=dev)
     if L == 0:
         return out
-    fns = cuda_segsum.bind(SOURCE, _FNS, "block3_matvec_error_string")
-    args = (h9.data_ptr(), v.data_ptr(), out.data_ptr(), L)
-    cuda_segsum.launch(fns["block3_matvec_launch"], args, dev,
-                       fns["block3_matvec_error_string"], "block3_matvec")
-    global LAUNCHES
-    LAUNCHES += 1
+    cuda_build.launch(cuda_build.bind(SOURCE, _FNS, "block3_matvec_error_string"),
+                      "block3_matvec_launch", (h9.data_ptr(), v.data_ptr(), out.data_ptr(), L),
+                      dev)
     return out

@@ -26,9 +26,9 @@ two round trips of an (O, W) tensor through device memory. Here:
 
 ``schur_layout`` builds the two segment layouts of a solve once, each with
 the other side's index in its own order (``segment_layout``'s ``other``),
-which the kernel reads beside Y. ``LAUNCHES`` counts kernel launches
-(plain-version calls do not count). The kernel is built with ``nvcc`` for
-``sm_90a`` at its first call and called through ``ctypes``.
+which the kernel reads beside Y. The kernel is built with ``nvcc`` for
+``sm_90a`` at its first call, called through ``ctypes`` and counted by
+``utils.cuda_build``.
 """
 
 from __future__ import annotations
@@ -40,17 +40,11 @@ import torch
 
 from reconstructor_tpu_torch.ba import cuda_segsum
 from reconstructor_tpu_torch.ba.cuda_segsum import SegmentLayout
+from reconstructor_tpu_torch.utils import cuda_build
 
 SOURCE = "ba/csrc/schur_sums.cu"
 # the matvec's einsum + segment_sum of W^T u (XLA, no Pallas); W z at :121
 REPLACES = "reconstructor_tpu/ba/distributed.py:118"
-
-LAUNCHES = 0
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 class SchurLayout(NamedTuple):
@@ -113,12 +107,9 @@ def _fused(fn: str, Y: torch.Tensor, operand: torch.Tensor, seg: SegmentLayout,
     if not operand.is_contiguous():
         operand = operand.contiguous()
     out = torch.empty(seg.n, out_width, dtype=torch.float32, device=dev)
-    fns = cuda_segsum.bind(SOURCE, _FNS, "schur_sum_error_string")
     args = ((Y.data_ptr(), seg.perm.data_ptr(), seg.other.data_ptr(), operand.data_ptr(),
              n_operand) + cuda_segsum.chunk_args(seg, seg.scratch) + (out.data_ptr(),))
-    cuda_segsum.launch(fns[fn], args, dev, fns["schur_sum_error_string"], fn)
-    global LAUNCHES
-    LAUNCHES += 1
+    cuda_build.launch(cuda_build.bind(SOURCE, _FNS, "schur_sum_error_string"), fn, args, dev)
     return out
 
 

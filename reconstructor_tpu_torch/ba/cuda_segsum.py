@@ -27,9 +27,8 @@ returns the (n, ...) sums of the live rows:
   rows (masked rows of the solver are exact zeros), so the CPU parity
   tests against the JAX package run the sums they ran before.
 
-``LAUNCHES`` counts kernel launches (plain-version calls do not count).
-The kernel is built with ``nvcc`` for ``sm_90a`` at its first call and
-called through ``ctypes``.
+The kernel is built with ``nvcc`` for ``sm_90a`` at its first call,
+called through ``ctypes`` and counted by ``utils.cuda_build``.
 """
 
 from __future__ import annotations
@@ -53,13 +52,6 @@ CHUNK_ROWS = 512
 # 144); a wider sum allocates its own
 SCRATCH_W = 144
 _INT32_MAX = 2 ** 31 - 1
-
-LAUNCHES = 0
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 class SegmentLayout(NamedTuple):
@@ -165,52 +157,6 @@ def seg_sum_plain(values: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
     return out.index_add_(0, layout.index, values.index_select(0, layout.rows))
 
 
-def bind(source: str, fns, error_fn: str) -> dict:
-    """Build (at first use) and load ``source``; set each function's
-    argtypes once (``fns``: name -> argtypes, all returning an int status;
-    ``error_fn`` maps a status to its message). Returns the bound
-    functions by name."""
-    lib = cuda_build.load(source)
-    bound = getattr(lib, "_bound", None)
-    if bound is None:
-        bound = {}
-        for name, argtypes in fns.items():
-            f = getattr(lib, name)
-            f.argtypes, f.restype = argtypes, ctypes.c_int
-            bound[name] = f
-        err = getattr(lib, error_fn)
-        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-        bound[error_fn] = err
-        lib._bound = bound
-    return bound
-
-
-# the current stream's handle without building a torch.cuda.Stream object,
-# which costs microseconds of host time on every call
-_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def _stream(index: int) -> int:
-    if _RAW_STREAM is not None:
-        return _RAW_STREAM(index)
-    return torch.cuda.current_stream(index).cuda_stream
-
-
-def launch(fn, args, dev: torch.device, error_string, what: str) -> None:
-    """Call launcher ``fn`` with ``args`` and the current stream of CUDA
-    device ``dev`` (made current for the call if it is not); raise with
-    the CUDA error when the launch fails."""
-    current = torch.cuda.current_device()
-    index = current if dev.index is None else dev.index
-    if index == current:
-        status = fn(*args, _stream(index))
-    else:
-        with torch.cuda.device(index):
-            status = fn(*args, _stream(index))
-    if status != 0:
-        raise RuntimeError(f"{what} launch failed: " + error_string(status).decode())
-
-
 def chunk_args(layout: SegmentLayout, scratch: torch.Tensor) -> tuple:
     """The layout's tables in the launchers' order: offsets, seg_ids,
     chunk_long, first_chunk, chunk_rows, counters, scratch, n_long,
@@ -223,7 +169,8 @@ def chunk_args(layout: SegmentLayout, scratch: torch.Tensor) -> tuple:
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # pointer, perm, offsets, seg_ids, chunk_long, first_chunk, chunk_rows,
 # counters, scratch, n_long, n_chunks, n_seg, W, out, stream
-_SEG_SUM_ARGS = [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _VP, _VP, _CI, _CI, _CI, _CI, _VP, _VP]
+_FNS = {"seg_sum_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _CI, _VP, _VP, _CI, _CI, _CI, _CI, _VP,
+                           _VP]}
 
 
 def seg_sum(values: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
@@ -254,10 +201,8 @@ def seg_sum(values: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
     scratch = layout.scratch
     if W > SCRATCH_W and layout.n_chunks:
         scratch = torch.empty(layout.n_chunks * W, dtype=torch.float32, device=dev)
-    fns = bind(SOURCE, {"seg_sum_launch": _SEG_SUM_ARGS}, "seg_sum_error_string")
     args = ((values.data_ptr(), layout.perm.data_ptr()) + chunk_args(layout, scratch)
             + (W, out.data_ptr()))
-    launch(fns["seg_sum_launch"], args, dev, fns["seg_sum_error_string"], "seg_sum")
-    global LAUNCHES
-    LAUNCHES += 1
+    cuda_build.launch(cuda_build.bind(SOURCE, _FNS, "seg_sum_error_string"), "seg_sum_launch",
+                      args, dev)
     return out

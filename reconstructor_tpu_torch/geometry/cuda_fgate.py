@@ -15,9 +15,9 @@ counts (B, H), int64:
   before (``sampson9`` on (B, H, S) tensors, the threshold, the mask and
   the sum), so the CPU tests against the JAX package run what they ran.
 
-``LAUNCHES`` counts kernel launches (plain-version calls do not count):
-one for each gated chunk on the card. The kernel is built with ``nvcc``
-for ``sm_90a`` at its first call and called through ``ctypes``.
+The kernel launches once for each gated chunk on the card. It is built
+with ``nvcc`` for ``sm_90a`` at its first call, called through ``ctypes``
+and counted by ``utils.cuda_build``.
 """
 
 from __future__ import annotations
@@ -26,19 +26,12 @@ import ctypes
 
 import torch
 
-from reconstructor_tpu_torch.ba import cuda_segsum
+from reconstructor_tpu_torch.utils import cuda_build
 
 SOURCE = "geometry/csrc/fgate_score.cu"
 # the scoring of filter_pairs_scalarized (plain jnp that XLA fuses; no Pallas)
 REPLACES = "reconstructor_tpu/geometry/fgate.py:216"
 _GRID_Y_MAX = 65535
-
-LAUNCHES = 0
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 def sampson9(f, x1, y1, x2, y2):
@@ -68,7 +61,8 @@ def sampson_counts_plain(f: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # f, pts1, pts2, mask, B, H, K, stride, thr, counts, stream
-_ARGS = [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, ctypes.c_float, _VP, _VP]
+_FNS = {"sampson_count_launch": [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, ctypes.c_float, _VP,
+                                 _VP]}
 
 
 def sampson_counts(f: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor,
@@ -107,12 +101,8 @@ def sampson_counts(f: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor,
     counts = torch.empty((B, H), dtype=torch.int64, device=dev)
     if B == 0 or H == 0:
         return counts
-    fns = cuda_segsum.bind(SOURCE, {"sampson_count_launch": _ARGS},
-                           "sampson_count_error_string")
     args = (f.data_ptr(), pts1.data_ptr(), pts2.data_ptr(), mask.data_ptr(), B, H, K, stride,
             thr, counts.data_ptr())
-    cuda_segsum.launch(fns["sampson_count_launch"], args, dev,
-                       fns["sampson_count_error_string"], "sampson_counts")
-    global LAUNCHES
-    LAUNCHES += 1
+    cuda_build.launch(cuda_build.bind(SOURCE, _FNS, "sampson_count_error_string"),
+                      "sampson_count_launch", args, dev)
     return counts

@@ -14,7 +14,6 @@ TPU package's function of the same name.
 ``knn_topk2`` is the wrapper: on a CUDA tensor it launches the kernel or
 raises; on a CPU tensor it runs ``knn_topk2_plain``, the same function in
 plain PyTorch, which is also what the kernel is held against on the card.
-``LAUNCHES`` counts kernel launches (plain-version calls do not count).
 bf16 descriptors take the kernel's tensor-core (``wgmma``) product, which
 skips the column tiles past each image's last valid slot
 (``column_extents``); float32 ones its SIMT product. The packed variant
@@ -25,11 +24,11 @@ Masked slots ride a large-finite bias (1e30) instead of inf so no
 inf - inf NaNs can appear in the reductions.
 
 ``knn_topk2(..., packed=True)`` is the TPU package's packed variant
-(``_knn_kernel_packed``, ``csrc/knn_packed.cu``, counted in
-``LAUNCHES_PACKED``, its bf16 tensor-core launches also in
-``LAUNCHES_PACKED_BF16``): each distance is quantised to 2^-17 and packed with
-its slot in one int32 key, so one integer min gives value and argmin; its
-bias is int32 (0 valid / ``_DMAX`` masked) and K <= 4096. As in the TPU
+(``_knn_kernel_packed``, ``csrc/knn_packed.cu``, its launches counted by
+``utils.cuda_build`` under ``knn_packed_launch`` in float32 and
+``knn_packed_launch_bf16`` in bf16): each distance is quantised to 2^-17
+and packed with its slot in one int32 key, so one integer min gives value
+and argmin; its bias is int32 (0 valid / ``_DMAX`` masked) and K <= 4096. As in the TPU
 package, ``match_all_pairs_fused`` keeps it off: it is reached only from
 the profiling scripts (``scripts/check_packed.py``).
 """
@@ -57,56 +56,22 @@ _DMAX = (1 << 19) - 1
 _INT_MAX = 2**31 - 1
 PACKED_MAX_K = 4096
 
-LAUNCHES = 0
-LAUNCHES_PACKED = 0
-LAUNCHES_PACKED_BF16 = 0
-
-
-def reset_launches() -> None:
-    global LAUNCHES, LAUNCHES_PACKED, LAUNCHES_PACKED_BF16
-    LAUNCHES = 0
-    LAUNCHES_PACKED = 0
-    LAUNCHES_PACKED_BF16 = 0
-
-
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE)
-    if not getattr(lib, "_knn_bound", False):
-        vp = ctypes.c_void_p
-        lib.knn_top2_launch.argtypes = [vp, ctypes.c_int, vp, vp, vp, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, vp, vp]
-        lib.knn_top2_launch.restype = ctypes.c_int
-        lib.knn_top2_wgmma_plan.argtypes = [ctypes.c_int, ctypes.c_int,
-                                            ctypes.POINTER(ctypes.c_int)]
-        lib.knn_top2_wgmma_plan.restype = ctypes.c_int
-        lib.knn_top2_error_string.argtypes = [ctypes.c_int]
-        lib.knn_top2_error_string.restype = ctypes.c_char_p
-        lib._knn_bound = True
-    return lib
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# desc, dtype code, bias, pair_idx, extent, B, K, D, best, second, arg,
+# colarg, (top-2 kernel:) colbest, stream
+_TOP2_ARGS = [_VP, _CI, _VP, _VP, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP]
+_FNS = {"knn_top2_launch": _TOP2_ARGS + [_VP, _VP],
+        "knn_top2_wgmma_plan": [_CI, _CI, ctypes.POINTER(_CI)]}
+_PACKED_FNS = {"knn_packed_launch": _TOP2_ARGS + [_VP]}
 
 
 def wgmma_plan(D: int, device: torch.device) -> dict:
     """The bf16 kernel's launch at descriptor width D on ``device``:
     pipeline stages and dynamic shared memory bytes."""
-    lib = _lib()
-    out = (ctypes.c_int * 2)()
-    status = lib.knn_top2_wgmma_plan(D, device.index, out)
-    if status != 0:
-        raise RuntimeError("knn_topk2: " + lib.knn_top2_error_string(status).decode())
+    lib = cuda_build.bind(SOURCE, _FNS, "knn_top2_error_string")
+    out = (_CI * 2)()
+    cuda_build.check(lib, lib["knn_top2_wgmma_plan"](D, device.index, out), "knn_topk2")
     return {"stages": out[0], "smem_bytes": out[1]}
-
-
-def _packed_lib() -> ctypes.CDLL:
-    lib = cuda_build.load(PACKED_SOURCE)
-    if not getattr(lib, "_knn_bound", False):
-        vp = ctypes.c_void_p
-        lib.knn_packed_launch.argtypes = [vp, ctypes.c_int, vp, vp, vp, ctypes.c_int,
-                                          ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, vp]
-        lib.knn_packed_launch.restype = ctypes.c_int
-        lib.knn_packed_error_string.argtypes = [ctypes.c_int]
-        lib.knn_packed_error_string.restype = ctypes.c_char_p
-        lib._knn_bound = True
-    return lib
 
 
 def supported(K: int, D: int) -> bool:
@@ -236,38 +201,23 @@ def knn_topk2(desc: torch.Tensor, bias: torch.Tensor, pair_idx: torch.Tensor,
     second = torch.empty((B, K), dtype=torch.float32, device=dev)
     arg = torch.empty((B, K), dtype=torch.int32, device=dev)
     colarg = torch.empty((B, K), dtype=torch.int32, device=dev)
-    global LAUNCHES, LAUNCHES_PACKED, LAUNCHES_PACKED_BF16
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if packed:
-            lib = _packed_lib()
-            # the bf16 product skips tiles past the extents; float32's reads none
-            extent = (column_extents(bias, valid_below=_DMAX)
-                      if desc.dtype == torch.bfloat16 else None)
-            status = lib.knn_packed_launch(
-                desc.data_ptr(), _DTYPE_CODE[desc.dtype], bias.data_ptr(),
-                pair_idx.data_ptr(), None if extent is None else extent.data_ptr(),
-                B, K, D, best.data_ptr(), second.data_ptr(), arg.data_ptr(),
-                colarg.data_ptr(), stream)
-            error = lib.knn_packed_error_string
-        else:
-            lib = _lib()
-            colbest = torch.empty((B, K), dtype=torch.int64, device=dev)   # 64-bit keys
-            extent = column_extents(bias)
-            status = lib.knn_top2_launch(
-                desc.data_ptr(), _DTYPE_CODE[desc.dtype], bias.data_ptr(),
-                pair_idx.data_ptr(), extent.data_ptr(), B, K, D, best.data_ptr(),
-                second.data_ptr(), arg.data_ptr(), colarg.data_ptr(), colbest.data_ptr(),
-                stream)
-            error = lib.knn_top2_error_string
-    if status != 0:
-        raise RuntimeError(f"{name} launch failed: " + error(status).decode())
+    outs = (best.data_ptr(), second.data_ptr(), arg.data_ptr(), colarg.data_ptr())
     if packed:
-        LAUNCHES_PACKED += 1
-        if desc.dtype == torch.bfloat16:
-            LAUNCHES_PACKED_BF16 += 1
+        # the bf16 product skips tiles past the extents; float32's reads none
+        bf16 = desc.dtype == torch.bfloat16
+        extent = column_extents(bias, valid_below=_DMAX) if bf16 else None
+        args = (desc.data_ptr(), _DTYPE_CODE[desc.dtype], bias.data_ptr(), pair_idx.data_ptr(),
+                None if extent is None else extent.data_ptr(), B, K, D) + outs
+        cuda_build.launch(cuda_build.bind(PACKED_SOURCE, _PACKED_FNS, "knn_packed_error_string"),
+                          "knn_packed_launch", args, dev,
+                          key="knn_packed_launch_bf16" if bf16 else None)
     else:
-        LAUNCHES += 1
+        colbest = torch.empty((B, K), dtype=torch.int64, device=dev)   # 64-bit keys
+        extent = column_extents(bias)
+        args = (desc.data_ptr(), _DTYPE_CODE[desc.dtype], bias.data_ptr(), pair_idx.data_ptr(),
+                extent.data_ptr(), B, K, D) + outs + (colbest.data_ptr(),)
+        cuda_build.launch(cuda_build.bind(SOURCE, _FNS, "knn_top2_error_string"),
+                          "knn_top2_launch", args, dev)
     return best, second, arg, colarg
 
 

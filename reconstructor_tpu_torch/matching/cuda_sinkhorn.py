@@ -14,8 +14,7 @@ returns C + u + v^T.
 JAX package's ``superglue.log_sinkhorn``. ``sinkhorn_kernel`` is the
 wrapper: on a CUDA tensor it launches the kernel or raises; on a CPU
 tensor it runs ``sinkhorn_plain``, the same loop in plain PyTorch, which
-is also what the kernel is held against on the card. ``LAUNCHES`` counts
-kernel launches (plain-version calls do not count).
+is also what the kernel is held against on the card.
 
 The kernel loops over each pair's valid rows and columns only (masked
 ones underflow to exactly 0 in every other logsumexp), for any mask, not
@@ -49,30 +48,15 @@ _BIG_NEG = -1e9
 _INDEX_LIMIT = 2 ** 31 - 1
 MAX_N1 = 8193
 
-LAUNCHES = 0
 # the launch plan of each (B, M1, N1, device index) chunk shape: cluster
 # size, dynamic shared memory bytes, clusters resident at once and band
 # rows held in shared memory when every slot is valid
 PLANS: dict = {}
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
-
-
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE)
-    if not getattr(lib, "_sinkhorn_bound", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.sinkhorn_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, ci, vp]
-        lib.sinkhorn_launch.restype = ci
-        lib.sinkhorn_plan.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ctypes.c_int)]
-        lib.sinkhorn_plan.restype = ci
-        lib.sinkhorn_error_string.argtypes = [ci]
-        lib.sinkhorn_error_string.restype = ctypes.c_char_p
-        lib._sinkhorn_bound = True
-    return lib
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# couplings, log_mu, log_nu, B, M1, N1, iters, cluster, smem bytes, u, v,
+# out, device index, stream
+_FNS = {"sinkhorn_launch": [_VP, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, _VP, _VP, _VP, _CI, _VP],
+        "sinkhorn_plan": [_CI, _CI, _CI, _CI, ctypes.POINTER(_CI)]}
 
 
 def supported(B: int, M1: int, N1: int) -> bool:
@@ -104,12 +88,10 @@ def plan(B: int, M1: int, N1: int, device: torch.device) -> dict:
     held in shared memory when every slot is valid."""
     key = (B, M1, N1, device.index)
     if key not in PLANS:
-        lib = _lib()
-        out = (ctypes.c_int * 4)()
-        status = lib.sinkhorn_plan(B, M1, N1, device.index, out)
-        if status != 0:
-            raise RuntimeError(f"sinkhorn: no launch for a ({B}, {M1}, {N1}) chunk: "
-                               + lib.sinkhorn_error_string(status).decode())
+        lib = cuda_build.bind(SOURCE, _FNS, "sinkhorn_error_string")
+        out = (_CI * 4)()
+        cuda_build.check(lib, lib["sinkhorn_plan"](B, M1, N1, device.index, out),
+                         f"sinkhorn: no launch for a ({B}, {M1}, {N1}) chunk")
         PLANS[key] = {"cluster": out[0], "smem_bytes": out[1], "active_clusters": out[2],
                       "cached_rows": out[3]}
     return PLANS[key]
@@ -182,23 +164,16 @@ def sinkhorn_kernel(couplings: torch.Tensor, log_mu: torch.Tensor, log_nu: torch
             raise ValueError(f"sinkhorn_kernel: {name} on {t.device}, couplings on {couplings.device}")
         if not t.is_contiguous():
             raise ValueError(f"sinkhorn_kernel: {name} must be contiguous")
-    lib = _lib()
     dev = couplings.device
     launch = plan(B, M1, N1, dev)
     out = torch.empty_like(couplings)
     u = torch.empty((B, M1), dtype=torch.float32, device=dev)
     v = torch.empty((B, N1), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.sinkhorn_launch(
-            couplings.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), B, M1, N1,
-            int(num_iters), launch["cluster"], launch["smem_bytes"], u.data_ptr(),
-            v.data_ptr(), out.data_ptr(), dev.index, stream)
-    if status != 0:
-        raise RuntimeError("sinkhorn launch failed: "
-                           + lib.sinkhorn_error_string(status).decode())
-    global LAUNCHES
-    LAUNCHES += 1
+    args = (couplings.data_ptr(), log_mu.data_ptr(), log_nu.data_ptr(), B, M1, N1,
+            int(num_iters), launch["cluster"], launch["smem_bytes"], u.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dev.index)
+    cuda_build.launch(cuda_build.bind(SOURCE, _FNS, "sinkhorn_error_string"), "sinkhorn_launch",
+                      args, dev)
     return out
 
 

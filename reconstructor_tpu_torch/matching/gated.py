@@ -38,9 +38,22 @@ def filter_pairs(pts1, pts2, mask, num_hypotheses: int, thresh_px: float,
             thresh_px=thresh_px, stride=stride, generator=generator, pos=pos)
 
 
+def match_pairs(desc, kmask, pair_chunk, ratio_thresh: float, cross_check: bool,
+                compute_dtype: str = "float32"):
+    """Top-2 kNN matching of one pair chunk, by the descriptors' device:
+    the CUDA kernel's matcher (``cuda_knn.match_all_pairs_fused``) on a
+    card, the plain matcher (``knn.match_all_pairs``) elsewhere, as the TPU
+    package picks Pallas from the platform. Returns (match_idx (B, K)
+    int32, match_mask (B, K))."""
+    fn = (cuda_knn.match_all_pairs_fused if desc.device.type == "cuda"
+          else knn.match_all_pairs)
+    with profiling.annotate("match.knn"):
+        return fn(desc, kmask, pair_chunk, ratio_thresh=ratio_thresh,
+                  cross_check=cross_check, compute_dtype=compute_dtype)
+
+
 def match_and_gate(desc, kmask, xy, pair_chunk,
-                   ratio_thresh: float, cross_check: bool,
-                   use_fused: bool, num_hypotheses: int,
+                   ratio_thresh: float, cross_check: bool, num_hypotheses: int,
                    thresh_px: float, min_matches: int,
                    compute_dtype: str = "float32",
                    generator: Optional[torch.Generator] = None,
@@ -52,10 +65,8 @@ def match_and_gate(desc, kmask, xy, pair_chunk,
     Returns (match_idx (B, K) int16 with -1 for gated-out slots,
     inlier counts (B,) int32).
     """
-    fn = cuda_knn.match_all_pairs_fused if use_fused else knn.match_all_pairs
-    with profiling.annotate("match.knn"):
-        midx, mmask = fn(desc, kmask, pair_chunk, ratio_thresh=ratio_thresh,
-                         cross_check=cross_check, compute_dtype=compute_dtype)
+    midx, mmask = match_pairs(desc, kmask, pair_chunk, ratio_thresh, cross_check,
+                              compute_dtype)
     K = desc.shape[1]
     pc = pair_chunk.long()
     p1 = xy[pc[:, 0]]                                             # (B, K, 2)

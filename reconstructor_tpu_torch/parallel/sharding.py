@@ -19,11 +19,10 @@ import numpy as np
 import torch
 
 from reconstructor_tpu_torch.geometry import ransac
-from reconstructor_tpu_torch.matching import cuda_knn, gated, knn, superglue
+from reconstructor_tpu_torch.matching import gated, superglue
 from reconstructor_tpu_torch.parallel.mesh import (  # noqa: F401  (the JAX module's names)
     AXIS, DEFAULT_TIMEOUT_S, Mesh, all_gather, all_sum, counts, initialize_multihost,
     make_mesh, pad_to_multiple, put_global, replicate, reset_counts, shard_batch, shard_rows)
-from reconstructor_tpu_torch.utils import profiling
 
 
 def _pairs(mesh: Mesh, pair_idx):
@@ -42,33 +41,26 @@ def _pairs(mesh: Mesh, pair_idx):
 
 def match_all_pairs_sharded(mesh: Mesh, desc, mask, pair_idx,
                             ratio_thresh: float = 0.7, cross_check: bool = True,
-                            use_fused: Optional[bool] = None,
                             compute_dtype: str = "float32"):
     """All-pairs descriptor matching with the pair axis sharded over the
     ranks (the reference's OpenMP collapse(2) loop,
     SequentialReconstructor.cpp:202). Descriptors are replicated; each rank
-    matches its slice of pairs with the CUDA top-2 kernel
-    (``use_fused``, the default on a card) or the plain matcher, and the
-    slices are gathered.
+    matches its slice of pairs (``gated.match_pairs``: the CUDA top-2
+    kernel on a card, the plain matcher on the CPU), and the slices are
+    gathered.
 
     desc (N, K, D), mask (N, K), pair_idx (P, 2). Returns (match_idx
     (P, K) int32, match_mask (P, K)) on the rank's device, the same on
     every rank.
     """
     pairs, n, _ = _pairs(mesh, pair_idx)
-    if use_fused is None:
-        use_fused = mesh.device.type == "cuda"
-    fn = cuda_knn.match_all_pairs_fused if use_fused else knn.match_all_pairs
-    with profiling.annotate("match.knn"):
-        mi, mm = fn(replicate(mesh, desc), replicate(mesh, mask), pairs,
-                    ratio_thresh=ratio_thresh, cross_check=cross_check,
-                    compute_dtype=compute_dtype)
+    mi, mm = gated.match_pairs(replicate(mesh, desc), replicate(mesh, mask), pairs,
+                               ratio_thresh, cross_check, compute_dtype)
     return all_gather(mesh, mi)[:n], all_gather(mesh, mm)[:n]
 
 
 def match_and_gate_sharded(mesh: Mesh, desc, kmask, xy, pair_idx,
-                           ratio_thresh: float, cross_check: bool,
-                           use_fused: bool, num_hypotheses: int,
+                           ratio_thresh: float, cross_check: bool, num_hypotheses: int,
                            thresh_px: float, min_matches: int,
                            compute_dtype: str = "float32",
                            generator: Optional[torch.Generator] = None,
@@ -96,9 +88,9 @@ def match_and_gate_sharded(mesh: Mesh, desc, kmask, xy, pair_idx,
         raise ValueError(f"pos {tuple(pos.shape)} is not ({n}, {num_hypotheses}, 8)")
     mi, cnt = gated.match_and_gate(
         replicate(mesh, desc), replicate(mesh, kmask), replicate(mesh, xy), pairs,
-        ratio_thresh=ratio_thresh, cross_check=cross_check, use_fused=use_fused,
-        num_hypotheses=num_hypotheses, thresh_px=thresh_px, min_matches=min_matches,
-        compute_dtype=compute_dtype, pos=shard_rows(mesh, pos, n_pad))
+        ratio_thresh=ratio_thresh, cross_check=cross_check, num_hypotheses=num_hypotheses,
+        thresh_px=thresh_px, min_matches=min_matches, compute_dtype=compute_dtype,
+        pos=shard_rows(mesh, pos, n_pad))
     return all_gather(mesh, mi)[:n], all_gather(mesh, cnt)[:n]
 
 

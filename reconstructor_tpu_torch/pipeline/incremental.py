@@ -514,7 +514,6 @@ class IncrementalReconstructor:
                         out = sharding.match_and_gate_sharded(
                             self._shards, desc_d, mask_d, xy_d, chunk,
                             ratio_thresh=cfg.ratio_thresh, cross_check=cfg.cross_check,
-                            use_fused=on_card,
                             num_hypotheses=cfg.fundamental_num_hypotheses,
                             thresh_px=cfg.fundamental_thresh_px,
                             min_matches=cfg.min_matches_for_filter,
@@ -522,8 +521,7 @@ class IncrementalReconstructor:
                     else:
                         mi, mm = sharding.match_all_pairs_sharded(
                             self._shards, desc_d, mask_d, chunk, ratio_thresh=cfg.ratio_thresh,
-                            cross_check=cfg.cross_check, use_fused=on_card,
-                            compute_dtype=compute_dtype)
+                            cross_check=cfg.cross_check, compute_dtype=compute_dtype)
                         out = (torch.where(mm, mi, -1), mm.sum(1))
                     results.append((s0, e, out))
             with profiling.annotate("match.tables"):

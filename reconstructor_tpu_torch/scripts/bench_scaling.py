@@ -135,8 +135,8 @@ def timed(mesh, fn, reps: int):
 def worker(argv=None) -> int:
     """One rank: join the group, run the asked parts, write the report."""
     from reconstructor_tpu_torch.ba import distributed, lm as ba_lm
-    from reconstructor_tpu_torch.matching import cuda_knn
     from reconstructor_tpu_torch.parallel import sharding
+    from reconstructor_tpu_torch.utils import cuda_build
     import torch.distributed as dist
 
     ap = argparse.ArgumentParser()
@@ -164,7 +164,7 @@ def worker(argv=None) -> int:
     rep = {"rank": mesh.rank, "n_processes": mesh.size, "backend": mesh.backend,
            "device": str(dev)}
     parts = args.parts.split(",")
-    cuda_knn.reset_launches()
+    cuda_build.reset_launches()
     if "knn" in parts or "gated" in parts:
         desc, mask, xy, pair_idx = matching_inputs(args.images, args.keypoints)
         rep["pairs"] = int(pair_idx.shape[0])
@@ -176,11 +176,10 @@ def worker(argv=None) -> int:
         def gated():
             gen = torch.Generator(device=dev).manual_seed(0)
             return sharding.match_and_gate_sharded(
-                mesh, desc, mask, xy, pair_idx, use_fused=dev.type == "cuda",
-                generator=gen, **GATE_KW)
+                mesh, desc, mask, xy, pair_idx, generator=gen, **GATE_KW)
         (mi, cnt), t = timed(mesh, gated, args.reps)
         rep.update(gated_s=t, gated_sha256=sha256(mi, cnt), gated_inliers=int(cnt.sum()))
-    rep["knn_kernel_launches"] = cuda_knn.LAUNCHES
+    rep["knn_kernel_launches"] = cuda_build.launches()["knn_top2_launch"]
     if "ba" in parts:
         arrays = make_ba_problem(np.random.default_rng(1), args.ba_cams, args.ba_points)
         prob = ba_lm.BAProblem(*(torch.from_numpy(a) for a in arrays))

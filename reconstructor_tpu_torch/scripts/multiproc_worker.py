@@ -47,10 +47,10 @@ from reconstructor_tpu_torch.config import ReconstructorConfig
 from reconstructor_tpu_torch.eval import render
 from reconstructor_tpu_torch.geometry import np_ops
 from reconstructor_tpu_torch.io import images as io_images
-from reconstructor_tpu_torch.matching import cuda_knn, pairs as pairing
+from reconstructor_tpu_torch.matching import pairs as pairing
 from reconstructor_tpu_torch.parallel import sharding
 from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
-from reconstructor_tpu_torch.utils import device as devices
+from reconstructor_tpu_torch.utils import cuda_build, device as devices
 
 
 def sha256(*arrays) -> str:
@@ -70,17 +70,17 @@ def gated_matching(mesh: sharding.Mesh, report: dict, rng) -> None:
     xy = rng.uniform(0, 512, (n_img, K, 2)).astype(np.float32)
     pair_idx = pairing.exhaustive_pairs(n_img)
     gen = devices.generator(mesh.device, 0)
-    cuda_knn.reset_launches()
+    cuda_build.reset_launches()
     t = time.perf_counter()
     midx, counts = sharding.match_and_gate_sharded(
         mesh, desc, mask, xy, pair_idx, ratio_thresh=0.7, cross_check=True,
-        use_fused=mesh.device.type == "cuda", num_hypotheses=128, thresh_px=3.0,
-        min_matches=7, generator=gen)
+        num_hypotheses=128, thresh_px=3.0, min_matches=7, generator=gen)
     if mesh.device.type == "cuda":
         torch.cuda.synchronize(mesh.device)
     report.update(match_pairs=int(pair_idx.shape[0]), match_table_shape=list(midx.shape),
                   match_table_sha256=sha256(midx, counts), matched=int(counts.sum()),
-                  generator_sha256=sha256(gen.get_state()), knn_launches=cuda_knn.LAUNCHES,
+                  generator_sha256=sha256(gen.get_state()),
+                  knn_launches=cuda_build.launches()["knn_top2_launch"],
                   match_s=time.perf_counter() - t)
 
 

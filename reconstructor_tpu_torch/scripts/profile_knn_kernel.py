@@ -11,13 +11,14 @@ its reductions switched on level by level (``csrc/knn_levels.cu``):
 - ``"packed"``: the packed-int32 keys with a fixed 4096 stride, clipped
   at 2^19 - 1, no sentinel (K <= 4096).
 
-On a CUDA tensor ``run`` launches the kernel (or raises) and counts it in
-``LAUNCHES``; on a CPU tensor it runs ``run_plain``, the same function in
-plain PyTorch. In bf16 the kernel takes the top-2 kNN kernel's
-tensor-core product (``matching/csrc/knn_wgmma.cuh``, of which that kernel
-keeps an inline copy); level 3 is checked equal to that kernel's outputs
-with zero bias, bit for bit, so the levels split its epilogue; float32
-takes the SIMT product.
+On a CUDA tensor ``run`` launches the kernel (or raises), counted by
+``utils.cuda_build`` under ``knn_levels_launch``; on a CPU tensor it runs
+``run_plain``, the same function in plain PyTorch. In bf16 the kernel
+takes the top-2 kNN kernel's tensor-core product
+(``matching/csrc/knn_wgmma.cuh``, of which that kernel keeps an inline
+copy); level 3 is checked equal to that kernel's outputs with zero bias,
+bit for bit, so the levels split its epilogue; float32 takes the SIMT
+product.
 
     python -m reconstructor_tpu_torch.scripts.profile_knn_kernel           # the sweep
     python -m reconstructor_tpu_torch.scripts.profile_knn_kernel --quick   # bf16: full vs packed
@@ -54,25 +55,10 @@ LEVELS = (0, 1, 2, 3, "packed")
 NAMES = {0: "matmul+min", 1: "+argmin", 2: "+second", 3: "full", "packed": "packed"}
 _LEVEL_CODE = {0: 0, 1: 1, 2: 2, 3: 3, "packed": 4}
 
-LAUNCHES = 0
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
-
-
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE)
-    if not getattr(lib, "_levels_bound", False):
-        vp = ctypes.c_void_p
-        ci = ctypes.c_int
-        lib.knn_levels_launch.argtypes = [ci, vp, ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp]
-        lib.knn_levels_launch.restype = ci
-        lib.knn_levels_error_string.argtypes = [ci]
-        lib.knn_levels_error_string.restype = ctypes.c_char_p
-        lib._levels_bound = True
-    return lib
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# level, desc, dtype code, pair_idx, B, K, D, best, second, arg, colarg,
+# colbest, stream
+_FNS = {"knn_levels_launch": [_CI, _VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP]}
 
 
 def run_plain(desc: torch.Tensor, pair_idx: torch.Tensor, level, pairs_per_batch: int = 16):
@@ -136,24 +122,17 @@ def run(desc: torch.Tensor, pair_idx: torch.Tensor, level):
                              f"descriptors on {desc.device}")
         if not t.is_contiguous():
             raise ValueError(f"profile_knn_kernel.run: {name} must be contiguous")
-    lib = _lib()
     dev = desc.device
     best = torch.empty((B, K), dtype=torch.float32, device=dev)
     second = torch.empty((B, K), dtype=torch.float32, device=dev)
     arg = torch.empty((B, K), dtype=torch.int32, device=dev)
     colarg = torch.empty((B, K), dtype=torch.int32, device=dev)
     colbest = torch.empty((B, K) if level == 3 else (1,), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.knn_levels_launch(
-            _LEVEL_CODE[level], desc.data_ptr(), cuda_knn._DTYPE_CODE[desc.dtype],
-            pair_idx.data_ptr(), B, K, D, best.data_ptr(), second.data_ptr(),
-            arg.data_ptr(), colarg.data_ptr(), colbest.data_ptr(), stream)
-    if status != 0:
-        raise RuntimeError(f"knn_levels launch (level {level!r}) failed: "
-                           + lib.knn_levels_error_string(status).decode())
-    global LAUNCHES
-    LAUNCHES += 1
+    args = (_LEVEL_CODE[level], desc.data_ptr(), cuda_knn._DTYPE_CODE[desc.dtype],
+            pair_idx.data_ptr(), B, K, D, best.data_ptr(), second.data_ptr(), arg.data_ptr(),
+            colarg.data_ptr(), colbest.data_ptr())
+    cuda_build.launch(cuda_build.bind(SOURCE, _FNS, "knn_levels_error_string"),
+                      "knn_levels_launch", args, dev)
     return best, second, arg, colarg
 
 

@@ -30,7 +30,8 @@ generator seeded 7 on the device, passed to ``match_and_gate`` as
 ``pos``. The environment variable ``CASES`` selects the cases (default
 ``ABCD``), as in the TPU script. On the card the kNN runs in
 ``knn_compute_dtype``; on the CPU in float32 (the TPU package's platform
-rule), through the kernel wrapper's plain version.
+rule): the gated cases through the plain matcher, as the driver's, the
+kNN-only cases through the kernel wrapper's plain version.
 
 ``main()`` detects on ``reference/data`` inside the repository and stops
 with a message naming the folder while the photographs are not there;
@@ -118,7 +119,7 @@ def gated_chunks(desc, kmask, xy, chunks, cfg: ReconstructorConfig, H: int, pos)
     """(int16 match table (B, Kt), inlier counts (B,)) of every chunk."""
     return [gated.match_and_gate(
         desc, kmask, xy, c, ratio_thresh=cfg.ratio_thresh, cross_check=cfg.cross_check,
-        use_fused=True, num_hypotheses=H, thresh_px=cfg.fundamental_thresh_px,
+        num_hypotheses=H, thresh_px=cfg.fundamental_thresh_px,
         min_matches=cfg.min_matches_for_filter,
         compute_dtype=compute_dtype(cfg, desc.device), pos=pos) for c in chunks]
 

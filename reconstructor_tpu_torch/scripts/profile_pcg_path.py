@@ -30,7 +30,7 @@ in a timed stage. One JSON object on stdout. To compare two commits on one card,
 parent with ``git archive`` into a directory that ``.gitignore`` lists,
 copy this file into its ``reconstructor_tpu_torch/scripts/``, and run
 parent, change, change, parent in one call; launch counters are read from
-the PCG kernels' modules the tree has.
+``utils.cuda_build``, so the parent must count launches there.
 
     python -m reconstructor_tpu_torch.scripts.profile_pcg_path [--mesh] \\
         [--parts path,street,pieces] [--device cpu]
@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import argparse
 import hashlib
-import importlib
 import json
 import sys
 import tempfile
@@ -51,7 +50,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from reconstructor_tpu_torch.ba import distributed, lm as ba_lm
+from reconstructor_tpu_torch.ba import cuda_schur, cuda_segsum, distributed, lm as ba_lm
 from reconstructor_tpu_torch.geometry import se3
 from reconstructor_tpu_torch.utils import cuda_build, device as devices
 from reconstructor_tpu_torch.utils import profiling
@@ -148,17 +147,6 @@ def build_kernels() -> None:
         list(pool.map(cuda_build.load, srcs))
 
 
-def _kernel_modules() -> dict:
-    """The PCG kernels' wrapper modules that this tree has, by name."""
-    mods = {}
-    for name in ("cuda_segsum", "cuda_schur"):
-        try:
-            mods[name] = importlib.import_module(f"reconstructor_tpu_torch.ba.{name}")
-        except ImportError:
-            continue
-    return mods
-
-
 def state_sha256(state) -> str:
     """One hash of every field of a state (its checkpoint arrays, by name)."""
     from reconstructor_tpu_torch.pipeline import checkpoint
@@ -177,19 +165,19 @@ def run_path(dev: torch.device, imgs, mesh=None) -> dict:
     from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
     rec = IncrementalReconstructor(ReconstructorConfig(ba_solver="pcg"), verbose=False,
                                    device=dev, mesh=mesh)
-    mods = _kernel_modules()
-    for m in mods.values():
-        m.reset_launches()
+    cuda_build.reset_launches()
     with tempfile.TemporaryDirectory() as out:
         t = time.perf_counter()
         state = rec.reconstruct_from_state(rec.detect_features_from_images(imgs),
                                            out_folder=out)
         _sync(dev)
         wall = time.perf_counter() - t
+    n = cuda_build.launches()
     return {"wall_s": wall, "registered": len(state.registered),
             "landmarks": int(state.num_landmarks), "ba_calls": dict(rec.ba_calls),
             "stages_s": {k: v / 1e3 for k, v in rec.timer.totals().items()},
-            "launches": {name: m.LAUNCHES for name, m in mods.items()},
+            "launches": {"cuda_segsum": n["seg_sum_launch"],
+                         "cuda_schur": n["ytu_sum_launch"] + n["yz_sum_launch"]},
             "state_sha256": state_sha256(state)}
 
 
@@ -286,20 +274,16 @@ def host_us(fn, dev: torch.device, n: int = 2000):
 
 def wrapper_host_us(prob: ba_lm.BAProblem) -> dict:
     """Each PCG kernel wrapper's host microseconds a call on ``prob``'s
-    layouts: kernel 5 into points at W = 3, kernel 6 (where the tree has
-    it) W^T u."""
+    layouts: kernel 5 into points at W = 3, kernel 6 W^T u."""
     dev = prob.cam_params.device
     long = prob._replace(obs_cam=prob.obs_cam.long(), obs_pt=prob.obs_pt.long())
     lay = distributed._layouts(long)
-    mods = _kernel_modules()
     O = prob.obs_cam.shape[0]
     v = torch.zeros(O, 3, device=dev)
-    out = {"seg_sum": host_us(lambda: mods["cuda_segsum"].seg_sum(v, lay.pt), dev)}
-    if "cuda_schur" in mods:
-        Y = torch.zeros(O, 12, 3, device=dev)
-        u = torch.zeros(prob.cam_params.shape[0], 12, device=dev)
-        out["ytu_sum"] = host_us(lambda: mods["cuda_schur"].ytu_sum(Y, u, lay), dev)
-    return out
+    Y = torch.zeros(O, 12, 3, device=dev)
+    u = torch.zeros(prob.cam_params.shape[0], 12, device=dev)
+    return {"seg_sum": host_us(lambda: cuda_segsum.seg_sum(v, lay.pt), dev),
+            "ytu_sum": host_us(lambda: cuda_schur.ytu_sum(Y, u, lay), dev)}
 
 
 def part_pieces(dev: torch.device, problems, reps: int) -> dict:

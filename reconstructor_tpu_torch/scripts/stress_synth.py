@@ -43,9 +43,8 @@ import torch
 
 from reconstructor_tpu_torch.config import ReconstructorConfig
 from reconstructor_tpu_torch.eval import synth
-from reconstructor_tpu_torch.matching import cuda_knn
 from reconstructor_tpu_torch.pipeline.incremental import IncrementalReconstructor
-from reconstructor_tpu_torch.utils import device as devices
+from reconstructor_tpu_torch.utils import cuda_build, device as devices
 
 SCENE_SEED = 7
 
@@ -75,14 +74,14 @@ def drive(rec: IncrementalReconstructor, state, checkpoint: Optional[str] = None
     if checkpoint and os.path.exists(checkpoint):
         state = rec.restore(checkpoint)
         print(f"resumed at {len(state.registered)} views", file=sys.stderr, flush=True)
-    cuda_knn.reset_launches()
+    cuda_build.reset_launches()
     before = dict(rec.ba_calls)
     state = rec.reconstruct_from_state(state, checkpoint_path=checkpoint)
     if rec.device.type == "cuda":
         torch.cuda.synchronize(rec.device)
     calls = {k: n - before[k] for k, n in rec.ba_calls.items()}
     return state, {"wall_s": time.perf_counter() - t0, "ba_calls": calls,
-                   "knn_launches": cuda_knn.LAUNCHES}
+                   "knn_launches": cuda_build.launches()["knn_top2_launch"]}
 
 
 def report(state, gt_poses, **extra) -> dict:

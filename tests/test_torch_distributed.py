@@ -46,8 +46,8 @@ from test_ba import make_ba_problem
 pytestmark = pytest.mark.multiprocess
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GATE = dict(ratio_thresh=0.9, cross_check=True, use_fused=False, num_hypotheses=64,
-            thresh_px=3.0, min_matches=7)
+GATE = dict(ratio_thresh=0.9, cross_check=True, num_hypotheses=64, thresh_px=3.0,
+            min_matches=7)
 BA = dict(max_iters=10, cg_iters=100, cg_tol=1e-8)
 SG = dict(sinkhorn_iters=10, score_thresh=0.2)
 
@@ -127,7 +127,7 @@ def run(m, prefix):
         si, sm, ss = superglue.match_pairs_batched(net, *map(T, sg_args), T(pairs), **SG)
         r = distributed.solve_pcg(prob, **BA)
     else:
-        mi, mm = sharding.match_all_pairs_sharded(m, z["desc"], z["mask"], pairs, use_fused=False)
+        mi, mm = sharding.match_all_pairs_sharded(m, z["desc"], z["mask"], pairs)
         gi, gc = sharding.match_and_gate_sharded(m, *gate_args, pairs,
                                                  pos=torch.from_numpy(z["pos"]), **GATE)
         g = torch.Generator().manual_seed(11)
@@ -230,7 +230,7 @@ def jax_refs(z):
     chunk[:15] = z["pairs"]
     gi, gc = jsharding.match_and_gate_sharded(
         mesh, jnp.asarray(z["gate_desc"]), jnp.asarray(z["gate_mask"]),
-        jnp.asarray(z["gate_xy"]), jnp.asarray(chunk), z["keys"], **GATE)
+        jnp.asarray(z["gate_xy"]), jnp.asarray(chunk), z["keys"], use_fused=False, **GATE)
     sg_args = [jnp.asarray(z["sg_" + k]) for k in ("desc", "xy", "score", "mask", "shapes")]
     si, sm, ss = jsharding.match_superglue_sharded(
         mesh, jsg.structured_identity_params(), *sg_args, jnp.asarray(chunk),

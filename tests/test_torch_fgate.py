@@ -17,7 +17,7 @@ from reconstructor_tpu.geometry import fgate as jfgate
 from reconstructor_tpu.matching import gated as jgated
 from reconstructor_tpu_torch.geometry import cuda_fgate
 from reconstructor_tpu_torch.geometry import fgate as tfgate
-from reconstructor_tpu_torch.matching import gated as tgated
+from reconstructor_tpu_torch.matching import cuda_knn, gated as tgated, knn as tknn
 
 from torch_parity import draws, t, two_view
 
@@ -135,11 +135,10 @@ class TestGatedMatching:
         pos = np.stack([draws(k, (H, 8)) for k in keys])
         mi_t, cnt_t = tgated.match_and_gate(
             t(desc), t(mask), t(xy), t(chunk), ratio_thresh=0.7, cross_check=True,
-            use_fused=False, num_hypotheses=H, thresh_px=3.0, min_matches=7, pos=t(pos))
+            num_hypotheses=H, thresh_px=3.0, min_matches=7, pos=t(pos))
         np.testing.assert_array_equal(np.asarray(mi_j), mi_t.numpy())
         np.testing.assert_array_equal(np.asarray(cnt_j), cnt_t.numpy())
-        # the fused (kernel-module) matcher gives the same tables here
-        mi_f, _ = tgated.match_and_gate(
-            t(desc), t(mask), t(xy), t(chunk), ratio_thresh=0.7, cross_check=True,
-            use_fused=True, num_hypotheses=H, thresh_px=3.0, min_matches=7, pos=t(pos))
-        np.testing.assert_array_equal(mi_f.numpy(), mi_t.numpy())
+        # the fused (kernel-module) matcher gives the plain matcher's tables here
+        for a, b in zip(cuda_knn.match_all_pairs_fused(t(desc), t(mask), t(chunk)),
+                        tknn.match_all_pairs(t(desc), t(mask), t(chunk))):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())

@@ -16,6 +16,7 @@ import pytest
 from reconstructor_tpu.matching import knn as jknn
 from reconstructor_tpu.matching import pallas_knn
 from reconstructor_tpu_torch.matching import cuda_knn, knn as tknn
+from reconstructor_tpu_torch.utils import cuda_build
 
 from torch_parity import t
 
@@ -149,9 +150,9 @@ def test_wrapper_dispatches_by_device():
     the plain version, an unknown device is refused."""
     desc, mask, pairs, _ = case_fully_masked()
     bias = np.where(mask, 0.0, 1e30).astype(np.float32)
-    before = cuda_knn.LAUNCHES
+    before = cuda_build.launches()
     cuda_knn.knn_topk2(t(desc), t(bias), t(pairs))
-    assert cuda_knn.LAUNCHES == before          # the plain version is not counted
+    assert cuda_build.launches() == before      # the plain version is not counted
     with pytest.raises(ValueError):
         cuda_knn.knn_topk2(t(desc).to("meta"), t(bias).to("meta"), t(pairs).to("meta"))
     assert cuda_knn.supported(1280, 128) and not cuda_knn.supported(1000, 128)

@@ -21,6 +21,7 @@ import torch
 from reconstructor_tpu.matching import pallas_knn
 from reconstructor_tpu_torch.matching import cuda_knn
 from reconstructor_tpu_torch.scripts import profile_knn_kernel as pk
+from reconstructor_tpu_torch.utils import cuda_build
 
 from torch_parity import t
 
@@ -89,9 +90,9 @@ def test_level3_is_the_top2_kernel_with_zero_bias():
 
 def test_run_contract():
     desc, pairs = inputs("unit")
-    before = pk.LAUNCHES
+    before = cuda_build.launches()
     pk.run(t(desc), t(pairs), 0)
-    assert pk.LAUNCHES == before                # the plain version is not counted
+    assert cuda_build.launches() == before      # the plain version is not counted
     with pytest.raises(ValueError, match="level"):
         pk.run(t(desc), t(pairs), 5)
     with pytest.raises(ValueError, match="4096"):

@@ -18,6 +18,7 @@ import torch
 from reconstructor_tpu.matching import pallas_knn
 from reconstructor_tpu_torch.matching import cuda_knn
 from reconstructor_tpu_torch.scripts import check_packed
+from reconstructor_tpu_torch.utils import cuda_build
 
 from torch_parity import t
 
@@ -167,10 +168,10 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="4096"):
         cuda_knn.knn_topk2(big, torch.zeros((1, 4096 + 128), dtype=torch.int32),
                            torch.zeros((1, 2), dtype=torch.int32), packed=True)
-    before = cuda_knn.LAUNCHES_PACKED, cuda_knn.LAUNCHES_PACKED_BF16
+    before = cuda_build.launches()
     for dtype in (torch.float32, torch.bfloat16):
         cuda_knn.knn_topk2(t(desc).to(dtype), t(packed_bias(mask)), t(pairs), packed=True)
-    assert (cuda_knn.LAUNCHES_PACKED, cuda_knn.LAUNCHES_PACKED_BF16) == before
+    assert cuda_build.launches() == before
 
 
 def test_fused_matcher_keeps_the_packed_kernel_off():
@@ -179,11 +180,12 @@ def test_fused_matcher_keeps_the_packed_kernel_off():
     desc, mask, pairs = case_ragged_masks()
     fi, fm = pallas_knn.match_all_pairs_fused(jnp.asarray(desc), jnp.asarray(mask),
                                               jnp.asarray(pairs), interpret=True)
-    before = cuda_knn.LAUNCHES_PACKED
+    before = cuda_build.launches()
     ti, tm = cuda_knn.match_all_pairs_fused(t(desc), t(mask), t(pairs))
     np.testing.assert_array_equal(np.asarray(fi), ti.numpy())
     np.testing.assert_array_equal(np.asarray(fm), tm.numpy())
-    assert cuda_knn.LAUNCHES_PACKED == before
+    after = cuda_build.launches()
+    assert all(after[k] == before[k] for k in ("knn_packed_launch", "knn_packed_launch_bf16"))
 
 
 def test_packed_column_extents_use_the_int32_rule():

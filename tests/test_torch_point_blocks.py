@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from reconstructor_tpu_torch.ba import cuda_blocks, distributed, lm as ba_lm
+from reconstructor_tpu_torch.utils import cuda_build
 
 
 def bits(x: torch.Tensor) -> torch.Tensor:
@@ -55,10 +56,10 @@ def test_cpu_takes_the_plain_route():
     h9 = distributed._inv3x3(H)
     assert h9.shape == (9, 33) and h9.is_contiguous()
     v = torch.from_numpy(rng.standard_normal((33, 3)).astype(np.float32))
-    cuda_blocks.reset_launches()
+    cuda_build.reset_launches()
     got = cuda_blocks.block3_matvec(h9, v)
     assert torch.equal(bits(got), bits(cuda_blocks.block3_matvec_plain(h9, v)))
-    assert cuda_blocks.LAUNCHES == 0
+    assert cuda_build.launches()["block3_matvec_launch"] == 0
     with pytest.raises(ValueError):
         cuda_blocks.block3_matvec(torch.zeros(9, 2, device="meta"),
                                   torch.zeros(2, 3, device="meta"))
@@ -174,10 +175,10 @@ def test_kernel_equals_the_reference(card, L):
                                  torch.cat([v_dr.expand(L, 3), v_dr]).contiguous())}
     for name, (h9, v) in cases.items():
         want = bits(cuda_blocks.block3_matvec_reference(h9, v))
-        cuda_blocks.reset_launches()
+        cuda_build.reset_launches()
         got = [cuda_blocks.block3_matvec(h9, v) for _ in range(3)]
         torch.cuda.synchronize(card)
-        assert cuda_blocks.LAUNCHES == (3 if h9.shape[1] else 0)
+        assert cuda_build.launches()["block3_matvec_launch"] == (3 if h9.shape[1] else 0)
         for out in got:
             assert out.shape == v.shape
             n = int((bits(out) != want).sum())
@@ -234,11 +235,12 @@ def test_pcg_solve_through_kernel_8(card, monkeypatch):
     monkeypatch.setattr(distributed, "_schur_matvec", counted_matvec)
     monkeypatch.setattr(distributed, "_lm_step_pcg", counted_step)
     kw = dict(max_iters=10, huber_delta=3.0)
-    cuda_blocks.reset_launches()
+    cuda_build.reset_launches()
     kernel = distributed.solve_pcg(prob, **kw)
     torch.cuda.synchronize(card)
     assert counts["trials"] > 0 and counts["matvecs"] > counts["trials"]
-    assert cuda_blocks.LAUNCHES == counts["matvecs"] + 2 * counts["trials"]
+    assert cuda_build.launches()["block3_matvec_launch"] == (counts["matvecs"]
+                                                             + 2 * counts["trials"])
     monkeypatch.setattr(cuda_blocks, "block3_matvec", cuda_blocks.block3_matvec_reference)
     ref = distributed.solve_pcg(prob, **kw)
     assert kernel.iterations == ref.iterations

@@ -30,6 +30,7 @@ from reconstructor_tpu.matching import pallas_sinkhorn
 from reconstructor_tpu.matching import superglue as jsg
 from reconstructor_tpu_torch.matching import cuda_sinkhorn
 from reconstructor_tpu_torch.matching import superglue as tsg
+from reconstructor_tpu_torch.utils import cuda_build
 
 from torch_parity import t
 
@@ -194,9 +195,9 @@ def test_sinkhorn_wrapper_dispatches_by_device():
     unknown device is refused."""
     scores, m0, m1 = ragged_scores(3)
     C, mu, nu, _ = cuda_sinkhorn.augment(t(scores), t(np.float32(0.7)), t(m0), t(m1))
-    before = cuda_sinkhorn.LAUNCHES
+    before = cuda_build.launches()
     out = cuda_sinkhorn.sinkhorn_kernel(C, mu, nu, 10)
-    assert cuda_sinkhorn.LAUNCHES == before
+    assert cuda_build.launches() == before
     assert torch.equal(out, cuda_sinkhorn.sinkhorn_plain(C, mu, nu, 10))
     with pytest.raises(ValueError):
         cuda_sinkhorn.sinkhorn_kernel(C.to("meta"), mu.to("meta"), nu.to("meta"), 10)
